@@ -1,0 +1,103 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C entry point (no PyTorch headers),
+so one nvcc call per file takes seconds. It is compiled for Hopper
+(``sm_90a``) into ``build/kernels/`` at the root of the checkout, at the
+first launch of one of its kernels, under a name that carries a hash of
+the source: an edited kernel is rebuilt, an unchanged one is reused.
+
+Nothing here runs at import time, so the CPU tests import every module
+without a CUDA toolkit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+__all__ = ["CSRC", "BUILD_DIR", "KERNELS", "load", "build_all", "BUILD_LOG"]
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# name -> (C entry point, its argument types); every entry returns
+# cudaGetLastError() as an int and takes the stream last.
+KERNELS = {
+    "resample_u8": ("resample_u8_launch", [_P, _P] + [_P] * 8 + [_I] * 6 + [_P]),
+    "warp_sample": ("warp_sample_launch", [_P] * 4 + [_I] * 7 + [_P]),
+}
+
+NVCC_FLAGS = [
+    "-gencode",
+    "arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+    "-Xptxas=-v",
+]
+
+# name -> loaded entry point, and name -> nvcc's output (registers, spills).
+_ENTRIES: dict[str, object] = {}
+BUILD_LOG: dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.environ.get("CUDA_HOME", "") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _library_path(name: str) -> Path:
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _build(name: str, out: Path) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    BUILD_LOG[name] = (proc.stdout + proc.stderr).strip()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{BUILD_LOG[name]}")
+    os.replace(tmp, out)
+
+
+def load(name: str):
+    """The C entry point of kernel ``name``, its argument types set; the
+    library is built on first use."""
+    fn = _ENTRIES.get(name)
+    if fn is not None:
+        return fn
+    path = _library_path(name)
+    if not path.is_file():
+        _build(name, path)
+    entry, argtypes = KERNELS[name]
+    fn = getattr(ctypes.CDLL(str(path)), entry)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    _ENTRIES[name] = fn
+    return fn
+
+
+def build_all() -> float:
+    """Build (or find built) and load every kernel; seconds taken."""
+    t0 = time.perf_counter()
+    for name in KERNELS:
+        load(name)
+    return time.perf_counter() - t0

@@ -1,0 +1,67 @@
+"""Numerics policy of the port: the one piece of process-wide state.
+
+The JAX package runs with 64-bit types disabled and full-f32 matmuls
+(``Precision.HIGH`` on its CPU reference path). PyTorch differs in two
+ways this module pins down:
+
+* float32 matmuls and convolutions on the card may use TF32 (~3 decimal
+  digits). The resampling matmuls and the evaluator's dot products are
+  f32 in the reference, so TF32 is switched off for both backends.
+* torch keeps float64/int64 where JAX canonicalises to float32/int32. A
+  float64 operand silently promotes a whole f32 expression, so every
+  numpy -> tensor crossing goes through ``to_device``, which casts the
+  way ``jnp.asarray`` does with x64 off.
+
+``ifloor32`` is the float -> int32 texel-index conversion every sampler
+path shares (the reference's ``ops/sampling._ifloor32``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["apply_policy", "to_device", "ifloor32", "INT32_MIN"]
+
+INT32_MIN = -2147483648
+
+
+def apply_policy() -> None:
+    """Full float32 for matmuls and convolutions, on every backend."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+_CANON = {
+    np.dtype(np.float64): np.float32,
+    np.dtype(np.int64): np.int32,
+    np.dtype(np.uint64): np.uint32,
+    np.dtype(np.float16): np.float32,
+}
+
+
+def to_device(x, device) -> torch.Tensor:
+    """numpy array / numpy or Python scalar / tensor -> tensor on
+    ``device``, with JAX's x64-off canonicalisation (f64 -> f32,
+    i64 -> i32). Python ``float`` becomes f32, ``int`` i32, ``bool``
+    bool. Tensors only move; their dtype is left alone."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    a = np.asarray(x)
+    canon = _CANON.get(a.dtype)
+    if canon is not None:
+        a = a.astype(canon)
+    return torch.tensor(a, device=device)
+
+
+def ifloor32(x: torch.Tensor) -> torch.Tensor:
+    """floor(x) as int32 with the reference's edge semantics: NaN and
+    +-inf map to INT32_MIN (x86 cvtps2dq "integer indefinite"), finite
+    values beyond the int32 range saturate (XLA's convert). The finite
+    path clamps in float64, which holds every int32 exactly, before it
+    narrows: a direct float -> int32 cast of an out-of-range value is
+    undefined in torch."""
+    f = torch.floor(x)
+    i = f.double().clamp(-2147483648.0, 2147483647.0).to(torch.int64).to(torch.int32)
+    return torch.where(torch.isfinite(f), i, torch.full_like(i, INT32_MIN))

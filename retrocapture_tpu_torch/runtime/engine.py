@@ -1,0 +1,1076 @@
+"""The Engine — RetroCapture's ShaderEngine contract in PyTorch.
+
+API mirrors src/shader/ShaderEngine.h:54-93 and the JAX package's
+``retrocapture_tpu.runtime.engine.Engine``: ``load_preset`` /
+``set_parameter`` / ``get_parameters`` / ``apply``; a failed preset load
+degrades to passthrough while keeping extracted parameter metadata for
+UIs, exactly like the reference (ShaderEngine.cpp:294-314).
+
+Execution model:
+* The evaluator runs eagerly, once per frame: every pass of the chain is
+  evaluated over its output grid on the engine's device, each pass's
+  framebuffer format applied as an epilogue
+  (ops/colorspace.framebuffer_store). Runtime parameters are constants
+  of the evaluation (the reference's const mode); FrameCount and Time
+  are device scalars.
+* Temporal state (7-deep history ring of final outputs —
+  ShaderEngine.cpp:1731-1865 — and PassFeedback ping-pong :1280-1347)
+  is an explicit ``_ChainState`` carried frame by frame; stateless
+  presets evaluate each frame of a batch from the same state.
+* The viewport blit is stateless and runs once per batch, batched, after
+  the chain (the CUDA blit kernel for ``output="u8"``).
+
+The device is always named by the caller (``Engine(device=...)``);
+frames given as numpy arrays are uploaded there.
+"""
+
+from __future__ import annotations
+
+import json
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from retrocapture_tpu_torch.frontend.interp import UnsupportedShaderError
+from retrocapture_tpu_torch.frontend.values import GlslEvalError, GType, V, smart_device
+from retrocapture_tpu_torch.graph.plan import (
+    PassContext,
+    PresetProgram,
+    TexBinding,
+    compile_preset,
+)
+from retrocapture_tpu_torch.graph.scale import PassShapes, compute_chain_shapes
+from retrocapture_tpu_torch.ops import colorspace as cs
+from retrocapture_tpu_torch.ops.colorspace import framebuffer_store
+from retrocapture_tpu_torch.ops.cuda.resample import _quantize_u8, blit_u8
+from retrocapture_tpu_torch.ops.sampling import sample2d
+from retrocapture_tpu_torch.policy import to_device
+from retrocapture_tpu_torch.presets.glslp import Preset
+from retrocapture_tpu_torch.utils.logging import get_logger
+
+__all__ = ["Engine", "MAX_FRAME_HISTORY", "chain_state_from_numpy"]
+
+MAX_FRAME_HISTORY = 7  # ShaderEngine.h:143
+_DT = np.float32(0.016)  # Time advance per frame
+
+log = get_logger(__name__)
+
+
+def _grids(w: int, h: int) -> tuple[np.ndarray, np.ndarray]:
+    """Concrete (NumPy) pixel-center coordinate grids [h, w]."""
+    u = (np.arange(w, dtype=np.float32) + 0.5) / np.float32(w)
+    v = (np.arange(h, dtype=np.float32) + 0.5) / np.float32(h)
+    return np.broadcast_to(u[None, :], (h, w)), np.broadcast_to(v[:, None], (h, w))
+
+
+@dataclass
+class _ChainState:
+    """Per-(source, viewport) device state."""
+
+    history: tuple  # tuple of [vh, vw, 4] tensors, most recent first
+    feedback: dict[int, Any]  # pass index → [oh, ow, 4]
+    frame_count: Any  # int32 0-d tensor
+    time: Any  # float32 0-d tensor
+
+
+def chain_state_from_numpy(history, feedback, frame_count, time, device) -> _ChainState:
+    """The port's chain state from the JAX engine's ``_ChainState`` arrays
+    (after ``np.asarray``): history tuple, feedback dict, frame count and
+    time, uploaded to ``device``."""
+    return _ChainState(
+        history=tuple(to_device(np.asarray(h, np.float32), device) for h in history),
+        feedback={int(j): to_device(np.asarray(t, np.float32), device) for j, t in feedback.items()},
+        frame_count=to_device(np.asarray(frame_count, np.int32), device),
+        time=to_device(np.asarray(time, np.float32), device),
+    )
+
+
+class Engine:
+    """load preset → set parameters → process frames."""
+
+    def __init__(self, viewport: Optional[tuple[int, int]] = None, *, device):
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self.device = dev
+        self._program: Optional[PresetProgram] = None
+        self._preset: Optional[Preset] = None
+        self._custom_params: dict[str, float] = {}
+        self._viewport = viewport  # (W, H) or None → source size
+        self._states: dict = {}
+        self._input_format = "rgb"  # rgb | nv12 | yuyv | uyvy
+        self._lowering_failed = False
+        self.shader_active = False
+        self.last_error: Optional[str] = None
+
+    # -- preset management ---------------------------------------------
+    def load_preset(self, path: str) -> bool:
+        """Parse + compile a .glslp (or bare .glsl as a single pass).
+        Returns False and degrades to passthrough on failure, keeping any
+        extracted parameters (reference behavior, ShaderEngine.cpp:294)."""
+        self._states.clear()
+        self._custom_params.clear()
+        self._lowering_failed = False
+        try:
+            if str(path).endswith(".glsl"):
+                preset = Preset.loads(f"shaders = 1\nshader0 = {path}\n", path=str(path))
+            else:
+                preset = Preset.load(path)
+            self._preset = preset
+            self._program = compile_preset(preset)
+            self.shader_active = True
+            self.last_error = None
+            return True
+        except Exception as e:  # noqa: BLE001 - degrade like the reference
+            log.warning("preset load failed, falling back to passthrough: %s", e)
+            self.last_error = f"{type(e).__name__}: {e}"
+            self._program = None
+            self.shader_active = False
+            return False
+
+    def unload(self) -> None:
+        self._program = None
+        self._preset = None
+        self.shader_active = False
+        self._states.clear()
+
+    # -- parameters -----------------------------------------------------
+    def get_parameters(self) -> list[dict]:
+        """Dedup'd parameter metadata across passes, first-wins; value
+        precedence custom > preset-file > pragma default
+        (ShaderEngine::getShaderParameters, ShaderEngine.cpp:3264)."""
+        if self._program is None:
+            return []
+        out = []
+        for name, meta in self._program.parameters.items():
+            value = self._custom_params.get(name, self._program.defaults.get(name, meta.initial))
+            out.append(
+                {
+                    "name": name,
+                    "description": meta.description,
+                    "value": float(value),
+                    "default": meta.initial,
+                    "min": meta.minimum,
+                    "max": meta.maximum,
+                    "step": meta.step,
+                }
+            )
+        return out
+
+    def set_parameter(self, name: str, value: float) -> bool:
+        """Validates the parameter exists and clamps to [min, max]
+        (ShaderEngine::setShaderParameter, ShaderEngine.cpp:3353). Takes
+        effect on the next apply()."""
+        if self._program is None or name not in self._program.parameters:
+            return False
+        meta = self._program.parameters[name]
+        self._custom_params[name] = float(np.clip(value, meta.minimum, meta.maximum))
+        return True
+
+    def get_parameter(self, name: str) -> Optional[float]:
+        if self._program is None:
+            return None
+        if name in self._custom_params:
+            return self._custom_params[name]
+        return self._program.defaults.get(name)
+
+    def set_input_format(self, fmt: str) -> None:
+        """Raw capture pixel format: 'rgb' (default, [H,W,3] u8/float),
+        'nv12' (packed planes [H*3/2, W] u8), 'yuyv'/'uyvy' ([H, W*2]
+        u8). Non-RGB formats are converted to RGB at the head of the
+        chain (processing/FrameProcessor.cpp:149-179)."""
+        if fmt not in ("rgb", "nv12", "yuyv", "uyvy"):
+            raise ValueError(f"unknown input format {fmt!r}")
+        self._input_format = fmt
+
+    def _packed_hw(self, ph: int, pw: int) -> tuple[int, int]:
+        """Logical (h, w) from a packed raw plane shape."""
+        fmt = self._input_format
+        if fmt == "nv12":
+            return (ph * 2) // 3, pw
+        if fmt in ("yuyv", "uyvy"):
+            return ph, pw // 2
+        return ph, pw
+
+    def _convert_packed(self, raw_b):
+        """Packed u8 batch → float RGB [B, H, W, 3]."""
+        fmt = self._input_format
+        ph, pw = raw_b.shape[1], raw_b.shape[2]
+        h, w = self._packed_hw(ph, pw)
+        if fmt == "nv12":
+            return cs.nv12_to_rgb(raw_b[:, :h, :], raw_b[:, h:, :], w, h)
+        if fmt == "yuyv":
+            return cs.yuyv_to_rgb(raw_b, w, h)
+        if fmt == "uyvy":
+            return cs.uyvy_to_rgb(raw_b, w, h)
+        return raw_b
+
+    def set_viewport(self, width: int, height: int) -> None:
+        self._viewport = (int(width), int(height))
+
+    def reset_state(self) -> None:
+        self._states.clear()
+
+    # -- state checkpoint/restore ----------------------------------------
+    def save_state(self, path: str) -> None:
+        """Serialize temporal state (history ring, PassFeedback textures,
+        frame counters) to an .npz in the JAX package's layout."""
+        blobs: dict[str, np.ndarray] = {}
+        meta = []
+        for ki, (key, st) in enumerate(self._states.items()):
+            meta.append(
+                {
+                    "key": list(key),
+                    "n_history": len(st.history),
+                    "feedback_keys": sorted(st.feedback),
+                }
+            )
+            for j, htex in enumerate(st.history):
+                blobs[f"s{ki}_h{j}"] = htex.cpu().numpy()
+            for j in sorted(st.feedback):
+                blobs[f"s{ki}_f{j}"] = st.feedback[j].cpu().numpy()
+            blobs[f"s{ki}_fc"] = st.frame_count.cpu().numpy()
+            blobs[f"s{ki}_tm"] = st.time.cpu().numpy()
+        blobs["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+        np.savez(_npz_path(path), **blobs)
+
+    def load_state(self, path: str) -> None:
+        """Restore state written by ``save_state`` of either package."""
+        data = np.load(_npz_path(path))
+        meta = json.loads(bytes(data["__meta__"]).decode())
+        self._states.clear()
+        for ki, m in enumerate(meta):
+            self._states[tuple(m["key"])] = chain_state_from_numpy(
+                [data[f"s{ki}_h{j}"] for j in range(m["n_history"])],
+                {j: data[f"s{ki}_f{j}"] for j in m["feedback_keys"]},
+                data[f"s{ki}_fc"],
+                data[f"s{ki}_tm"],
+                self.device,
+            )
+
+    # -- application ----------------------------------------------------
+    def apply(self, frames, output: str = "f32"):
+        """Process one frame [H,W,3|4] or a batch [B,H,W,3|4] (uint8 or
+        float; packed [B, ph, pw] u8 for nv12/yuyv/uyvy). Returns RGB at
+        the viewport size on the engine's device: float32 in [0,1]
+        (default) or, with ``output="u8"``, uint8 from the fused blit
+        kernel. Batches of temporal presets run frame by frame with the
+        state carried; stateless presets evaluate every frame from the
+        same state."""
+        if output not in ("f32", "u8"):
+            raise ValueError(f"unknown output {output!r}")
+        arr = self._upload(frames)
+        packed = self._input_format != "rgb"
+        if not packed and arr.dim() == 5:
+            raise NotImplementedError("apply_streams is not ported to torch yet")
+        batched = arr.dim() == (3 if packed else 4)
+        if not batched:
+            arr = arr[None]
+        if packed:
+            h, w = self._packed_hw(arr.shape[1], arr.shape[2])
+        else:
+            h, w = arr.shape[1], arr.shape[2]
+        vw, vh = self._viewport or (w, h)
+
+        if self._program is None or self._lowering_failed:
+            out = self._passthrough_out(arr, packed, vw, vh, output)
+            return out if batched else out[0]
+
+        key = (h, w, vw, vh)
+        try:
+            state = self._get_state(key, seed_source=self._history_seed(key, arr, packed))
+            out, new_state = self._run_batch(key, arr, state, u8=output == "u8")
+        except (GlslEvalError, ValueError, IndexError, TypeError) as e:
+            # A pass failed to lower — the reference's GL compile would
+            # have failed too; degrade to passthrough but KEEP the
+            # extracted parameter metadata (ShaderEngine.cpp:294-314).
+            log.warning("shader lowering failed, passthrough: %s", e)
+            self.last_error = f"{type(e).__name__}: {e}"
+            self.shader_active = False
+            self._lowering_failed = True
+            self._states.clear()
+            out = self._passthrough_out(arr, packed, vw, vh, output)
+            return out if batched else out[0]
+        self._states[key] = new_state
+        return out if batched else out[0]
+
+    # -- internals ------------------------------------------------------
+    def _upload(self, frames) -> torch.Tensor:
+        if isinstance(frames, torch.Tensor):
+            if frames.device != self.device:
+                raise ValueError(
+                    f"frames are on {frames.device}, the engine on {self.device}"
+                )
+            return frames
+        return to_device(np.asarray(frames), self.device)
+
+    def _passthrough_out(self, arr, packed: bool, vw: int, vh: int, output: str):
+        src = self._to_rgba_float(self._convert_packed(arr) if packed else arr)
+        out = self._passthrough(src, vw, vh)[..., :3]
+        return _quantize_u8(out) if output == "u8" else out
+
+    def _history_seed(self, key, arr, packed: bool):
+        """Normalized first frame for seeding a cold history ring, or
+        None when the state is already warm / the preset keeps none."""
+        if key in self._states or not self._program.uses_history():
+            return None
+        first = self._convert_packed(arr[:1]) if packed else arr[:1]
+        return self._to_rgba_float(first)[0]
+
+    @staticmethod
+    def _to_rgba_float(arr):
+        if arr.dtype == torch.uint8:
+            arr = arr.to(torch.float32) * (1.0 / 255.0)
+        else:
+            arr = arr.to(torch.float32)
+        if arr.shape[-1] == 3:
+            alpha = torch.ones(arr.shape[:-1] + (1,), dtype=torch.float32, device=arr.device)
+            arr = torch.cat([arr, alpha], dim=-1)
+        return arr
+
+    @staticmethod
+    def _resize_bilinear(tex, out_w: int, out_h: int):
+        u, v = _grids(out_w, out_h)
+        return sample2d(tex, u, v, filter_linear=True)
+
+    def _passthrough(self, src, vw: int, vh: int):
+        if src.shape[2] == vw and src.shape[1] == vh:
+            return src
+        return torch.stack([self._resize_bilinear(t, vw, vh) for t in src])
+
+    def _get_state(self, key, seed_source=None) -> _ChainState:
+        st = self._states.get(key)
+        if st is not None:
+            return st
+        h, w, vw, vh = key
+        prog = self._program
+        shapes = compute_chain_shapes(prog.preset, w, h, vw, vh)
+        dev = self.device
+        history = ()
+        if prog.uses_history():
+            last = shapes[-1]
+            if seed_source is not None:
+                # Reference semantics for unfilled history slots: the
+                # PrevN sampler stays unbound → texture unit 0 → the
+                # pass input (ShaderEngine.cpp:1137-1155). Seed the ring
+                # with the first frame resized through the same path a
+                # real history entry takes.
+                entry = _history_entry(seed_source, last.out_w, last.out_h)
+                history = tuple(entry for _ in range(MAX_FRAME_HISTORY))
+            else:
+                history = tuple(
+                    torch.zeros((last.out_h, last.out_w, 4), dtype=torch.float32, device=dev)
+                    for _ in range(MAX_FRAME_HISTORY)
+                )
+        feedback = {}
+        if prog.uses_feedback():
+            for j, sh in enumerate(shapes):
+                feedback[j] = torch.zeros((sh.out_h, sh.out_w, 4), dtype=torch.float32, device=dev)
+        st = _ChainState(
+            history=history,
+            feedback=feedback,
+            frame_count=torch.zeros((), dtype=torch.int32, device=dev),
+            time=torch.zeros((), dtype=torch.float32, device=dev),
+        )
+        self._states[key] = st
+        return st
+
+    def _run_batch(self, key, raw_b, state: _ChainState, u8: bool):
+        """Normalize the batch, run the chain over every frame, blit."""
+        h, w, vw, vh = key
+        prog = self._program
+        shapes = compute_chain_shapes(prog.preset, w, h, vw, vh)
+        params = dict(prog.defaults)
+        params.update(self._custom_params)
+        temporal = prog.uses_history() or prog.uses_feedback()
+        # Chain input sits on the k/255 grid only when it is raw u8 RGB
+        # with no packed-format convert.
+        src_quant = raw_b.dtype == torch.uint8 and self._input_format == "rgb"
+        if self._input_format != "rgb":
+            raw_b = self._convert_packed(raw_b)
+        src_b = Engine._to_rgba_float(raw_b)
+        nb = src_b.shape[0]
+
+        def single(src, hist, fb, fc, tm):
+            return _run_chain_impl(
+                prog, shapes, (vw, vh), src, hist, fb, fc, tm, params,
+                blit=False, source_quantized=src_quant,
+            )
+
+        outs = []
+        if temporal:
+            hist, fb, fc, tm = state.history, state.feedback, state.frame_count, state.time
+            for i in range(nb):
+                out, hist, fb = single(src_b[i], hist, fb, fc, tm)
+                outs.append(out)
+                fc = fc + 1
+                tm = tm + _DT
+            new_state = _ChainState(hist, fb, fc, tm)
+        else:
+            # Per-frame FrameCount/Time: the reference increments once per
+            # frame (ShaderEngine.cpp:1685-1689), so frame i of a batch
+            # sees fc+i.
+            fcs = state.frame_count + torch.arange(nb, dtype=torch.int32, device=self.device)
+            tms = state.time + _DT * torch.arange(nb, dtype=torch.float32, device=self.device)
+            for i in range(nb):
+                out, _, _ = single(src_b[i], state.history, state.feedback, fcs[i], tms[i])
+                outs.append(out)
+            new_state = _ChainState(
+                state.history,
+                state.feedback,
+                state.frame_count + nb,
+                state.time + _DT * np.float32(nb),
+            )
+        return _finalize(torch.stack(outs)[..., :3], vw, vh, u8), new_state
+
+
+def _finalize(outs_b, vw: int, vh: int, u8: bool):
+    """Batched viewport blit + output packing. The u8 path is the fused
+    blit kernel (ops/cuda/resample.blit_u8)."""
+    needs_blit = outs_b.shape[1] != vh or outs_b.shape[2] != vw
+    if not u8:
+        if needs_blit:
+            u, v = _grids(vw, vh)
+            outs_b = torch.stack([sample2d(t, u, v, filter_linear=True) for t in outs_b])
+        return outs_b
+    return blit_u8(outs_b, vw, vh)
+
+
+def _npz_path(path: str) -> str:
+    """np.savez appends .npz when absent — normalize so a checkpoint
+    saved as 'state' loads back as 'state'."""
+    return path if str(path).endswith(".npz") else str(path) + ".npz"
+
+
+def _history_entry(src, out_w: int, out_h: int):
+    """Build a frame-history ring entry from a frame: resize to the ring
+    shape with the LINEAR blit and quantize to RGBA8, exactly like the
+    in-chain history update (the GL copy into a GL_RGBA/UNSIGNED_BYTE
+    texture, ShaderEngine.cpp:1744-1756)."""
+    if src.shape[0] != out_h or src.shape[1] != out_w:
+        u, v = _grids(out_w, out_h)
+        src = sample2d(src, u, v, filter_linear=True)
+    return framebuffer_store(src, float_framebuffer=False, srgb_framebuffer=False)
+
+
+# ---------------------------------------------------------------------------
+# Chain execution
+
+
+def _run_chain_impl(
+    prog: PresetProgram,
+    shapes: list[PassShapes],
+    viewport: tuple[int, int],
+    source,  # [h, w, 4] float32
+    history: tuple,
+    feedback: dict[int, Any],
+    frame_count,
+    time,
+    params: dict[str, float],
+    blit: bool = True,
+    source_quantized: bool = False,
+):
+    """Execute every pass of a compiled preset for one frame. FrameCount
+    increments once per frame, not per pass (ShaderEngine.cpp:1685-1689);
+    history updates most-recent-first with the *final* processed output
+    (:1731-1865); feedback ping-pong swaps at frame end (:1710-1718)."""
+    n = len(prog.passes)
+    src_h, src_w = source.shape[0], source.shape[1]
+    preset = prog.preset
+
+    def filter_of_output(j: int) -> tuple[bool, str, bool]:
+        # Output of pass j carries the texture state last applied by the
+        # pass that consumed it as input (j+1); the final pass's output
+        # keeps the FBO defaults LINEAR/clamp (createFramebuffer).
+        if j + 1 < n:
+            cfg = preset.passes[j + 1]
+            return cfg.filter_linear, cfg.wrap_mode, cfg.mipmap_input
+        return True, "clamp_to_edge", False
+
+    def _stored_quant(j: int) -> bool:
+        cfg_j = preset.passes[j]
+        return not cfg_j.float_framebuffer and not cfg_j.srgb_framebuffer
+
+    original_binding = TexBinding(
+        source,
+        preset.passes[0].filter_linear,
+        preset.passes[0].wrap_mode,
+        preset.passes[0].mipmap_input,
+        quantized=source_quantized,
+    )
+    # History entries are RGBA8 copies (framebuffer_store below).
+    history_bindings = [
+        TexBinding(t, True, "clamp_to_edge", quantized=True) for t in history
+    ]
+
+    pass_outputs: list[Optional[TexBinding]] = []
+    outputs_raw: list = []
+    current = source
+    cur_quant = source_quantized
+    for i, cp in enumerate(prog.passes):
+        cfg = preset.passes[i]
+        sh = shapes[i]
+        input_binding = TexBinding(
+            current, cfg.filter_linear, cfg.wrap_mode, cfg.mipmap_input,
+            quantized=cur_quant,
+        )
+        fb_bindings = {
+            j: TexBinding(t, *filter_of_output(j), quantized=_stored_quant(j))
+            for j, t in feedback.items()
+        }
+        ctx = PassContext(
+            prog,
+            i,
+            shapes=shapes,
+            viewport=viewport,
+            source_size=(src_w, src_h),
+            input_binding=input_binding,
+            original_binding=original_binding,
+            pass_outputs=pass_outputs,
+            history=history_bindings,
+            feedback=fb_bindings,
+            frame_count=frame_count,
+            frame_time=time,
+            params={
+                k: (np.float32(v) if isinstance(v, (int, float, np.generic)) else v)
+                for k, v in params.items()
+            },
+            device=source.device,
+        )
+        color = _eval_pass_on_grid(cp, ctx, sh)
+        stored = framebuffer_store(
+            color,
+            float_framebuffer=cfg.float_framebuffer,
+            srgb_framebuffer=cfg.srgb_framebuffer,
+        )
+        outputs_raw.append(stored)
+        pass_outputs.append(
+            TexBinding(stored, *filter_of_output(i), quantized=_stored_quant(i))
+        )
+        current = stored
+        cur_quant = _stored_quant(i)
+
+    final = current
+
+    # History ring: the final pass output (at its own size,
+    # ShaderEngine.cpp:1744-1756) quantized to RGBA8 like the copy into a
+    # GL_RGBA/UNSIGNED_BYTE texture.
+    new_history = history
+    if history:
+        hh, hw = history[0].shape[0], history[0].shape[1]
+        if final.shape[0] != hh or final.shape[1] != hw:
+            u, v = _grids(hw, hh)
+            entry = sample2d(final, u, v, filter_linear=True)
+        else:
+            entry = final
+        entry = framebuffer_store(entry, float_framebuffer=False, srgb_framebuffer=False)
+        new_history = (entry,) + tuple(history[:-1])
+
+    # Feedback ping-pong: this frame's outputs become next frame's
+    # PassFeedback textures.
+    new_feedback = {j: outputs_raw[j] for j in feedback}
+
+    # Final window blit (OpenGLRenderer::renderTexture): stretch the last
+    # pass output to the viewport with the FBO texture's LINEAR filter.
+    final = final[..., :3]
+    vw, vh = viewport
+    if blit and (final.shape[0] != vh or final.shape[1] != vw):
+        u, v = _grids(vw, vh)
+        final = sample2d(final, u, v, filter_linear=True)
+
+    return final, new_history, new_feedback
+
+
+def _quad_transform(v_globals, ow: int, oh: int):
+    """Inverse rasterization map for a non-identity ``gl_Position``.
+
+    Most corpus vertex shaders emit ``gl_Position = MVPMatrix *
+    VertexCoord`` — a fullscreen quad, for which evaluating varyings
+    directly on the output grid is exact.  A handful (lcd-shader,
+    imgborder, cocktail-cabinet, hqx single-pass, braid-rewind) *scale*
+    the clip position, shrinking the quad to a sub-region of the
+    render target (the integer-prescale-with-borders trick).  The
+    reference rasterizes that quad into a transparent-black-cleared FBO
+    (ShaderEngine's per-pass glClear; see OpenGLRenderer FBO setup), so
+    uncovered pixels are (0,0,0,0).
+
+    The evaluator seeds the vertex stage on the output pixel grid and
+    tracks clip position as an affine function of (col, row).  When the
+    evaluated ``gl_Position`` differs from the identity quad, invert the
+    affine map: for each *real* output pixel, find the seeded grid
+    coordinate whose transformed clip position lands there, re-run the
+    vertex stage on those coordinates, and mask pixels that fall
+    outside the quad.  Returns ``((axx, axy, bx), (ayx, ayy, by))``
+    with ``col' = axx*col + axy*row + bx`` (likewise row'), or None
+    when gl_Position is the identity quad / not analyzable (the
+    historical fullscreen assumption)."""
+    from retrocapture_tpu_torch.frontend.values import affine_of
+
+    gp = v_globals.get("gl_Position")
+    if not isinstance(gp, V) or gp.type.shape != (4,):
+        return None
+    aff = affine_of(gp, 4)
+    if aff is None:
+        return None
+    (ax, bx, cx), (ay, by, cy), _zt, (aw, bw, cw) = aff
+    # Only w == 1 (no perspective) is invertible as a 2-D affine map.
+    if aw != 0.0 or bw != 0.0 or abs(cw - 1.0) > 1e-9:
+        return None
+    import math
+
+    def close(u, v):
+        return math.isclose(u, v, rel_tol=1e-6, abs_tol=1e-9)
+
+    if (
+        close(ax, 2.0 / ow)
+        and close(bx, 0.0)
+        and close(cx, 1.0 / ow - 1.0)
+        and close(ay, 0.0)
+        and close(by, 2.0 / oh)
+        and close(cy, 1.0 / oh - 1.0)
+    ):
+        return None  # identity fullscreen quad
+    det = ax * by - bx * ay
+    if abs(det) < 1e-12:
+        return None
+    # Seeded clip = A·(col,row) + c; target NDC of real pixel (col0,row0)
+    # is ((2/ow)·col0 + 1/ow − 1, (2/oh)·row0 + 1/oh − 1).  Solve
+    # A·(col',row') = q − c for the pre-image grid coordinate.
+    gx, hx = 2.0 / ow, 1.0 / ow - 1.0 - cx
+    gy, hy = 2.0 / oh, 1.0 / oh - 1.0 - cy
+    return (
+        (by * gx / det, -bx * gy / det, (by * hx - bx * hy) / det),
+        (-ay * gx / det, ax * gy / det, (-ay * hx + ax * hy) / det),
+    )
+
+
+
+def _plane_setup_f32_pos(p0, p1, p2, a0v, a1v, a2v):
+    """llvmpipe plane setup from arbitrary (snapped) screen-space
+    triangle positions — the general form of _plane_setup_f32 used when
+    ``gl_Position`` is a non-identity quad (integer-prescale-with-border
+    vertex shaders scale the clip position; the rasterized quad then
+    covers a sub- or super-region of the render target)."""
+    f = np.float32
+    x0, y0 = f(p0[0]), f(p0[1])
+    x1, y1 = f(p1[0]), f(p1[1])
+    x2, y2 = f(p2[0]), f(p2[1])
+    a0v, a1v, a2v = f(a0v), f(a1v), f(a2v)
+    dx01 = f(x0 - x1)
+    dy01 = f(y0 - y1)
+    dx20 = f(x2 - x0)
+    dy20 = f(y2 - y0)
+    area = f(f(dx01 * dy20) - f(dx20 * dy01))
+    if area == 0.0:
+        return None
+    ooa = f(f(1.0) / area)
+    da01 = f(a0v - a1v)
+    da20 = f(a2v - a0v)
+    dadx = f(f(da01 * f(dy20 * ooa)) - f(da20 * f(dy01 * ooa)))
+    dady = f(f(da20 * f(dx01 * ooa)) - f(da01 * f(dx20 * ooa)))
+    a0 = f(a0v - f(f(dadx * f(x0 - f(0.5))) + f(dady * f(y0 - f(0.5)))))
+    return a0, dadx, dady
+
+
+def _snap16(x):
+    """lp_setup's 1/16-subpixel fixed-point vertex snapping."""
+    return np.float32(np.round(np.float64(x) * 16.0) / 16.0)
+
+
+def _quad_screen_corners(gp, ow: int, oh: int):
+    """Screen-space (col, row) corners from concrete gl_Position corner
+    values [[c00,c10],[c01,c11]] (vec4), via the GL viewport transform +
+    1/16 snapping. Returns (corners dict, identity flag) or None when
+    not an affine no-perspective quad."""
+    arr = np.asarray(gp, np.float64)
+    if arr.shape != (2, 2, 4):
+        return None
+    ws = arr[..., 3]
+    if not np.allclose(ws, 1.0, rtol=0, atol=1e-9):
+        return None
+    sx = _snap16((arr[..., 0] * 0.5 + 0.5) * ow)
+    sy = _snap16((arr[..., 1] * 0.5 + 0.5) * oh)
+    ident = (
+        np.array_equal(sx, np.array([[0.0, ow], [0.0, ow]], np.float32))
+        and np.array_equal(sy, np.array([[0.0, 0.0], [oh, oh]], np.float32))
+    )
+    return (sx, sy), ident
+
+
+def _plane_setup_f32(w: int, h: int, c10, c11, c01):
+    """llvmpipe triangle-plane setup, bit-exact (probed 2026-08-17 over
+    7 viewport sizes against the real-GL oracle with RGBA32F readback).
+
+    The oracle draws the fullscreen quad as a TRIANGLE_STRIP whose second
+    triangle is (v1, v3, v2) = ((w,0), (w,h), (0,h)) in screen pixels
+    (gloracle.cpp:386-392, 558); Mesa's lp_setup computes each attribute
+    plane as a0/dadx/dady in float32 with exactly this operation order,
+    folding the half-pixel center into a0.  Per-pixel evaluation is then
+    ``f32(f32(a0 + dadx*x) + dady*y)`` at INTEGER pixel coords, each
+    step single-rounded (fma).  Reproducing these exact bits is what
+    decides the knife-edge ``mod(vTexCoord, cell) > texel`` comparisons
+    the handheld/lcd dot-matrix shaders build their grids from."""
+    f = np.float32
+    x0, y0, a0v = f(w), f(0.0), f(c10)
+    x1, y1, a1v = f(w), f(h), f(c11)
+    x2, y2, a2v = f(0.0), f(h), f(c01)
+    dx01 = f(x0 - x1)
+    dy01 = f(y0 - y1)
+    dx20 = f(x2 - x0)
+    dy20 = f(y2 - y0)
+    area = f(f(dx01 * dy20) - f(dx20 * dy01))
+    ooa = f(f(1.0) / area)
+    da01 = f(a0v - a1v)
+    da20 = f(a2v - a0v)
+    dadx = f(f(da01 * f(dy20 * ooa)) - f(da20 * f(dy01 * ooa)))
+    dady = f(f(da20 * f(dx01 * ooa)) - f(da01 * f(dx20 * ooa)))
+    a0 = f(a0v - f(f(dadx * f(x0 - f(0.5))) + f(dady * f(y0 - f(0.5)))))
+    return a0, dadx, dady
+
+
+def _plane_component(a0, dadx, dady, ow: int, oh: int):
+    """Per-pixel plane evaluation ``f32(f32(a0 + dadx*x) + dady*y)`` at
+    integer pixel coords, as a CONCRETE numpy broadcast view.
+
+    Concreteness is the point: the fragment evaluator then runs every
+    varying-derived expression (floor/fract/clamp texel sharpening,
+    scanline sin factors, ...) in numpy on the host, so coordinate math
+    reaches the samplers as concrete per-axis vectors (eligible for the
+    index-select taps), and row- or column-constant values reach the
+    device as one row or column (values.smart_device)."""
+    inner = (np.float64(dadx) * np.arange(ow, dtype=np.float64) + np.float64(a0)).astype(
+        np.float32
+    )
+    if dady == 0.0:
+        return np.broadcast_to(inner[None, :], (oh, ow))
+    if dadx == 0.0:
+        col = (np.float64(dady) * np.arange(oh, dtype=np.float64) + np.float64(a0)).astype(
+            np.float32
+        )
+        return np.broadcast_to(col[:, None], (oh, ow))
+    return (
+        inner[None, :].astype(np.float64)
+        + np.float64(dady) * np.arange(oh, dtype=np.float64)[:, None]
+    ).astype(np.float32)
+
+
+def _plane_varyings(cp, ctx: PassContext, ow: int, oh: int):
+    """Rasterizer-exact varyings: evaluate the vertex stage at the four
+    quad corners only (what GL hardware does), then rebuild each varying
+    over the output grid with llvmpipe's plane equation in float32.
+
+    This replaces the historical per-pixel vertex evaluation for two
+    reasons of GL semantics:
+    1. float32 rounding — interpolated values differ from per-pixel
+       formula evaluation in ulps, and dot-matrix shaders branch on
+       exact ties of those bits (handheld/lcd families);
+    2. non-affine vertex math (cos/floor of TexCoord, etc.) must be
+       computed at corners and linearly interpolated, not evaluated
+       per-pixel.
+
+    Returns {varying name -> V} for every float varying whose corner
+    values are concrete, {} when the vertex stage can't be corner-run
+    (tensor uniforms, vertex texture fetches...)."""
+    f = np.float32
+    tc = np.array(
+        [[[0, 0, 0, 1], [1, 0, 0, 1]], [[0, 1, 0, 1], [1, 1, 0, 1]]], np.float32
+    )
+    vc = np.array(
+        [[[-1, -1, 0, 1], [1, -1, 0, 1]], [[-1, 1, 0, 1], [1, 1, 0, 1]]], np.float32
+    )
+    t4 = GType("float", (4,))
+    tex_v = V(tc, t4)
+    vert_v = V(vc, t4)
+    col_v = V(np.ones(4, np.float32), t4)
+    ins = {
+        "TexCoord": tex_v,
+        "VertexCoord": vert_v,
+        "Position": vert_v,
+        "COLOR": col_v,
+        "Color": col_v,
+        "gl_Position": vert_v,
+        "PrevTexCoord": tex_v,
+    }
+    for n in range(1, 7):
+        ins[f"Prev{n}TexCoord"] = tex_v
+    try:
+        v_globals, _, _ = cp.vertex_eval.run(ctx, ins)
+    except Exception:
+        return {}, None
+    from retrocapture_tpu_torch.frontend.values import is_concrete
+
+    # Screen-space corner positions from gl_Position (viewport transform
+    # + 1/16 vertex snapping): identity quads use the probed integer-
+    # corner setup; scaled quads (integer-prescale-with-border vertex
+    # shaders) interpolate across their actual rasterized rectangle and
+    # come with a coverage mask (pixels outside are cleared black by the
+    # per-pass glClear).
+    gp = v_globals.get("gl_Position")
+    if not isinstance(gp, V) or not is_concrete(gp.data):
+        return {}, None
+    try:
+        gp_c = np.broadcast_to(np.asarray(gp.data, np.float32), (2, 2, 4))
+    except ValueError:
+        return {}, None
+    qc = _quad_screen_corners(gp_c, ow, oh)
+    if qc is None:
+        return {}, None
+    (qsx, qsy), identity_quad = qc
+    cover = None
+    if not identity_quad:
+        xlo, xhi = float(qsx.min()), float(qsx.max())
+        ylo, yhi = float(qsy.min()), float(qsy.max())
+        covx = ((np.arange(ow, dtype=np.float64) + 0.5) >= xlo) & (
+            (np.arange(ow, dtype=np.float64) + 0.5) < xhi
+        )
+        covy = ((np.arange(oh, dtype=np.float64) + 0.5) >= ylo) & (
+            (np.arange(oh, dtype=np.float64) + 0.5) < yhi
+        )
+        cover = (covy, covx)
+
+    out = {}
+    for name in cp.vertex_eval.varying_names:
+        cv = v_globals.get(name)
+        if not isinstance(cv, V) or cv.type.base != "float":
+            continue
+        if not is_concrete(cv.data):
+            continue
+        comps = cv.type.shape[0] if cv.type.is_vector else 1
+        try:
+            arr = np.broadcast_to(
+                np.asarray(cv.data, np.float32), (2, 2, comps) if cv.type.is_vector else (2, 2)
+            )
+        except ValueError:
+            continue
+        if not cv.type.is_vector:
+            arr = arr[..., None]
+        planes = []
+        affs = []
+        ok = True
+        for k in range(comps):
+            c00, c10, c01, c11 = arr[0, 0, k], arr[0, 1, k], arr[1, 0, k], arr[1, 1, k]
+            if not np.all(np.isfinite([c00, c10, c01, c11])):
+                ok = False
+                break
+            if identity_quad:
+                plane = _plane_setup_f32(ow, oh, c10, c11, c01)
+            else:
+                plane = _plane_setup_f32_pos(
+                    (qsx[0, 1], qsy[0, 1]),
+                    (qsx[1, 1], qsy[1, 1]),
+                    (qsx[1, 0], qsy[1, 0]),
+                    c10,
+                    c11,
+                    c01,
+                )
+                if plane is None:
+                    ok = False
+                    break
+            a0, dadx, dady = plane
+            comp = _plane_component(a0, dadx, dady, ow, oh)
+            # Non-planar f32 corners (genuinely bilinear varyings) render
+            # as two triangle planes with a diagonal seam in GL; stitch
+            # the first-triangle plane over its half.
+            resid = (float(c11) - float(c10)) - (float(c01) - float(c00))
+            scale = max(abs(float(c)) for c in (c00, c10, c01, c11)) or 1.0
+            if abs(resid) > 64.0 * np.spacing(np.float32(scale)) and identity_quad:
+                b0, bdx, bdy = _plane_setup_t012_f32(ow, oh, c00, c10, c01)
+                compA = _plane_component(b0, bdx, bdy, ow, oh)
+                xs = np.arange(ow, dtype=np.float32)[None, :] + np.float32(0.5)
+                ys = np.arange(oh, dtype=np.float32)[:, None] + np.float32(0.5)
+                lower = xs * np.float32(oh) + ys * np.float32(ow) < np.float32(ow * oh)
+                comp = np.where(lower, compA, comp)
+                affs = None
+            if affs is not None:
+                affs.append((float(dadx), float(dady), float(a0)))
+            planes.append(comp)
+        if not ok:
+            continue
+        data = np.stack(planes, axis=-1) if cv.type.is_vector else planes[0]
+        out[name] = V(
+            data,
+            cv.type,
+            affine=tuple(affs) if affs is not None and cv.type.is_vector else None,
+        )
+    return out, cover
+
+
+def _plane_setup_t012_f32(w: int, h: int, c00, c10, c01):
+    """Plane setup for the strip's FIRST triangle (v0,v1,v2) =
+    ((0,0),(w,0),(0,h)) — used only to stitch non-planar (bilinear)
+    varyings across the quad diagonal."""
+    f = np.float32
+    x0, y0, a0v = f(0.0), f(0.0), f(c00)
+    x1, y1, a1v = f(w), f(0.0), f(c10)
+    x2, y2, a2v = f(0.0), f(h), f(c01)
+    dx01 = f(x0 - x1)
+    dy01 = f(y0 - y1)
+    dx20 = f(x2 - x0)
+    dy20 = f(y2 - y0)
+    area = f(f(dx01 * dy20) - f(dx20 * dy01))
+    ooa = f(f(1.0) / area)
+    da01 = f(a0v - a1v)
+    da20 = f(a2v - a0v)
+    dadx = f(f(da01 * f(dy20 * ooa)) - f(da20 * f(dy01 * ooa)))
+    dady = f(f(da20 * f(dx01 * ooa)) - f(da01 * f(dx20 * ooa)))
+    a0 = f(a0v - f(f(dadx * f(x0 - f(0.5))) + f(dady * f(y0 - f(0.5)))))
+    return a0, dadx, dady
+
+
+def _eval_pass_on_grid(cp, ctx: PassContext, sh: PassShapes):
+    """One pass: vertex stage over the output grid → varyings; fragment
+    stage → [oh, ow, 4] color. The pixel grids are seeded as device
+    tensors carrying affine metadata (values.py), so separable taps are
+    proven separable; rasterizer-exact varyings replace them where the
+    vertex stage can be evaluated at the quad corners."""
+    ow, oh = sh.out_w, sh.out_h
+    dev = ctx.device
+    xg = torch.arange(ow, dtype=torch.float32, device=dev)[None, :].expand(oh, ow)  # column
+    yg = torch.arange(oh, dtype=torch.float32, device=dev)[:, None].expand(oh, ow)  # row
+    zeros = torch.zeros((oh, ow), dtype=torch.float32, device=dev)
+    ones = torch.ones((oh, ow), dtype=torch.float32, device=dev)
+    ugrid = (xg + 0.5) * np.float32(1.0 / ow)
+    vgrid = (yg + 0.5) * np.float32(1.0 / oh)
+
+    ua = (1.0 / ow, 0.0, 0.5 / ow)
+    va = (0.0, 1.0 / oh, 0.5 / oh)
+    c0 = (0.0, 0.0, 0.0)
+    c1 = (0.0, 0.0, 1.0)
+
+    def vec4(a, b, c, d, aff):
+        comps = torch.broadcast_tensors(a, b, c, d)
+        return V(torch.stack(comps, dim=-1), GType("float", (4,)), affine=aff)
+
+    tex_coord = vec4(ugrid, vgrid, zeros, ones, (ua, va, c0, c1))
+    vertex_coord = vec4(
+        ugrid * 2.0 - 1.0,
+        vgrid * 2.0 - 1.0,
+        zeros,
+        ones,
+        (
+            (2.0 / ow, 0.0, 1.0 / ow - 1.0),
+            (0.0, 2.0 / oh, 1.0 / oh - 1.0),
+            c0,
+            c1,
+        ),
+    )
+    color_attr = V(np.ones(4, np.float32), GType("float", (4,)))
+
+    def attr_inputs(tc, vc):
+        # Attribute slot aliases per the reference's glBindAttribLocation
+        # table (ShaderEngine.cpp:707-719): Position shares slot 0 with
+        # VertexCoord; the motion-blur Prev*TexCoord attributes share
+        # slot 1 with TexCoord (all frames use the same quad coords).
+        ins = {
+            "TexCoord": tc,
+            "VertexCoord": vc,
+            "Position": vc,
+            "COLOR": color_attr,
+            "Color": color_attr,
+            "gl_Position": vc,
+            "PrevTexCoord": tc,
+        }
+        for n in range(1, 7):
+            ins[f"Prev{n}TexCoord"] = tc
+        return ins
+
+    v_inputs = attr_inputs(tex_coord, vertex_coord)
+    v_globals, _, _ = cp.vertex_eval.run(ctx, v_inputs)
+
+    cover = None
+    # Rasterizer-exact varyings: corner-evaluate the vertex stage and
+    # rebuild each varying with llvmpipe's float32 plane equations.
+    try:
+        planes, plane_cover = _plane_varyings(cp, ctx, ow, oh)
+    except Exception:  # noqa: BLE001 - corner evaluation is best effort
+        planes, plane_cover = {}, None
+    if planes and plane_cover is not None:
+        # A transformed quad demands every consumed varying come from
+        # the planes; a leftover identity-grid varying would be wrong.
+        for name in cp.vertex_eval.varying_names:
+            gv = v_globals.get(name)
+            if isinstance(gv, V) and gv.type.base == "float" and name not in planes:
+                planes, plane_cover = {}, None
+                break
+    if planes and plane_cover is not None:
+        covy, covx = plane_cover
+        cover = to_device(covy, dev)[:, None] & to_device(covx, dev)[None, :]
+    quad = None if planes else _quad_transform(v_globals, ow, oh)
+    if quad is not None:
+        (axx, axy, bx0), (ayx, ayy, by0) = quad
+        xg2 = axx * xg + axy * yg + np.float32(bx0)
+        yg2 = ayx * xg + ayy * yg + np.float32(by0)
+        # Quad param covers col ∈ [-0.5, ow-0.5); fragments whose
+        # pre-image falls outside are never rasterized → cleared black.
+        cover = (xg2 >= -0.5) & (xg2 < ow - 0.5) & (yg2 >= -0.5) & (yg2 < oh - 0.5)
+
+        def _comp(t):
+            a, b, c = t
+            return (a * axx + b * ayx, a * axy + b * ayy, a * bx0 + b * by0 + c)
+
+        ugrid2 = (xg2 + 0.5) * np.float32(1.0 / ow)
+        vgrid2 = (yg2 + 0.5) * np.float32(1.0 / oh)
+        tex_coord = vec4(ugrid2, vgrid2, zeros, ones, (_comp(ua), _comp(va), c0, c1))
+        vertex_coord = vec4(
+            ugrid2 * 2.0 - 1.0,
+            vgrid2 * 2.0 - 1.0,
+            zeros,
+            ones,
+            (
+                _comp((2.0 / ow, 0.0, 1.0 / ow - 1.0)),
+                _comp((0.0, 2.0 / oh, 1.0 / oh - 1.0)),
+                c0,
+                c1,
+            ),
+        )
+        v_inputs = attr_inputs(tex_coord, vertex_coord)
+        v_globals, _, _ = cp.vertex_eval.run(ctx, v_inputs)
+
+    f_inputs = {}
+    for name in cp.vertex_eval.varying_names:
+        if name in v_globals:
+            f_inputs[name] = v_globals[name]
+    f_inputs.update({n: pv for n, pv in planes.items() if n in f_inputs})
+    if quad is None:
+        # Concrete gl_FragCoord: per-axis numpy broadcast views, so
+        # fragCoord-derived masks (comb patterns, interlace mod) fold on
+        # the host like the plane varyings do.
+        xc = np.broadcast_to(
+            (np.arange(ow, dtype=np.float32) + np.float32(0.5))[None, :], (oh, ow)
+        )
+        yc = np.broadcast_to(
+            (np.arange(oh, dtype=np.float32) + np.float32(0.5))[:, None], (oh, ow)
+        )
+        fc_data = np.stack(
+            [xc, yc, np.zeros((oh, ow), np.float32), np.ones((oh, ow), np.float32)],
+            axis=-1,
+        )
+        frag_coord = V(
+            fc_data,
+            GType("float", (4,)),
+            affine=((1.0, 0.0, 0.5), (0.0, 1.0, 0.5), c0, c1),
+        )
+    else:
+        frag_coord = vec4(
+            xg + 0.5,
+            yg + 0.5,
+            zeros,
+            ones,
+            ((1.0, 0.0, 0.5), (0.0, 1.0, 0.5), c0, c1),
+        )
+    f_inputs["gl_FragCoord"] = frag_coord
+
+    _, out_color, discard_mask = cp.fragment_eval.run(ctx, f_inputs)
+    if out_color is None:
+        raise UnsupportedShaderError(f"pass {cp.index}: no output color written")
+    data = smart_device(out_color.data, dev)
+    if discard_mask is not None and discard_mask is not False:
+        if discard_mask is True:
+            data = torch.zeros_like(data)
+        else:
+            data = torch.where(smart_device(discard_mask, dev)[..., None], 0.0, data)
+    if cover is not None:
+        data = torch.where(cover[..., None], data, 0.0)
+    return data.expand(oh, ow, 4)
