@@ -4,13 +4,16 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``retrocapture_tpu_torch/csrc`` (into
-``build/kernels/``), holds each against its plain torch version on the
-card, drives the main path (``Engine.load_preset`` + ``Engine.apply``) at
-full size for the feedback-ghost-nv12 slice and for a warped curvature
-pass, compares both with the port's own CPU run, and times the kernels
-(device time from torch.profiler, and per call with CUDA events) and the
-slice. Prints one line per phase, the kernel
-table as a JSON line, and as its last line
+``build/kernels/``, one nvcc per source, in parallel), holds each against
+its plain torch version on the card, drives the main path
+(``Engine.load_preset`` + ``Engine.apply``) at full size for the
+feedback-ghost-nv12 slice, a warped curvature pass, the crt-mattias hand
+kernel (default blur, ``RCTPU_BLUR=v1`` and ``RCTPU_MATTIAS=preconv``)
+and feedback-ghost under ``RCTPU_XPHASE=on``, compares them with the
+port's own CPU run, and times the kernels (device time per launch from
+CUDA events around it, and per call through the wrapper) against their
+plain versions (device time from torch.profiler) and the slices. Prints
+one line per phase, the kernel table as a JSON line, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the run
 exits non-zero and prints no result; so does a machine without CUDA. It
 imports nothing of JAX.
@@ -18,7 +21,9 @@ imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -31,6 +36,7 @@ VIEWPORT = (1920, 1080)  # (W, H)
 SRC_HW = (240, 320)
 SLICE_BATCH = 128
 WARP_BATCH = 8
+MATTIAS_BATCH = 32
 DEV = "cuda"  # the card; the checks below never fall back to the CPU
 
 WARP_GLSLP = """shaders = 1
@@ -77,11 +83,25 @@ void main()
 #endif
 """
 
-# (batch, src_h, src_w, dst_h, dst_w): the blit at the main path's own
-# shape (the slice's batch), the same geometry at B=8, the other
-# geometries of tests/test_kernels_resample.py, and x-only (src_h ==
-# dst_h) and y-only (src_w == dst_w) cases.
+# feedback-ghost with its pass at the source size (absolute scale), so
+# that the viewport blit is a 320 -> 1920 (r = 6) upscale: the xphase path.
+XPHASE_GLSLP = """shaders = 1
+shader0 = {shader}
+filter_linear0 = false
+scale_type0 = absolute
+scale_x0 = {w}
+scale_y0 = {h}
+"""
+
+# (batch, src_h, src_w, dst_h, dst_w): the blit at the feedback-ghost
+# slice's own shape (its pass renders at the viewport, and f32 coordinate
+# rounding keeps the 1080p -> 1080p LINEAR blit from being the identity),
+# the 320x240 -> 1080p upscale at the slice's batch (the xphase path's
+# blit with RCTPU_XPHASE off) and at B=8, the other geometries of
+# tests/test_kernels_resample.py, and x-only (src_h == dst_h) and y-only
+# (src_w == dst_w) cases.
 RESAMPLE_GEOMETRIES = [
+    (SLICE_BATCH, 1080, 1920, 1080, 1920),
     (SLICE_BATCH, 240, 320, 1080, 1920),
     (8, 240, 320, 1080, 1920),
     (2, 240, 640, 1080, 1920),
@@ -92,6 +112,21 @@ RESAMPLE_GEOMETRIES = [
     (2, 240, 320, 1080, 320),
 ]
 TRUTH_CHUNK = 16  # frames per f64 truth computation (bounds its memory)
+_SPIN = "spin_kernel"  # the kernel of torch.cuda._sleep
+_SPIN_CYCLES = 1_000_000  # about 0.5 ms at the H100's SM clock
+
+
+# (batch, src_h, src_w, dst_h, dst_w) of the phase-form blit: the xphase
+# path's shape (phase 11), and the other integer-ratio geometries of
+# tests/test_kernels_resample.py (r = 3, y identity, odd heights).
+XPHASE_GEOMETRIES = [
+    (SLICE_BATCH, 240, 320, 1080, 1920),
+    (2, 240, 640, 1080, 1920),
+    (2, 240, 320, 240, 1920),
+    (2, 333, 640, 333, 1920),
+    (2, 240, 320, 1077, 1920),
+    (2, 96, 128, 192, 256),
+]
 
 
 class SmokeFailure(AssertionError):
@@ -125,8 +160,12 @@ def device_ms(fn, iters):
     """Mean device milliseconds per call of fn: the summed duration of the
     device work (kernels and copies) that iters calls enqueue, from
     torch.profiler's CUDA activity. Host time between launches is not in
-    it, so a wrapper's host-side set-up does not count as kernel time."""
+    it. Used for the plain versions (thousands of small kernels) and the
+    device-busy time of an apply; a kernel of the port is timed by
+    launch_ms, because profiler windows on the card were seen to lose a
+    launch's record."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -134,24 +173,83 @@ def device_ms(fn, iters):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = 0.0
-    for e in prof.key_averages():
-        total_us += getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+        # Windows on the card were seen to lose their last device record
+        # when the profiler stops: a short trailing kernel, left out of
+        # the sum, stands last in its place.
+        torch.cuda._sleep(_SPIN_CYCLES)
+        torch.cuda.synchronize()
+    records = [e for e in prof.events() if e.device_type == DeviceType.CUDA and _SPIN not in e.name]
+    total_us = sum(e.time_range.elapsed_us() for e in records)
     check(total_us > 0, "torch.profiler recorded no device time")
     return total_us / 1e3 / iters
 
 
-def in_turns(plain, kernel, iters, timer):
-    """(plain_ms, kernel_ms) measured in turns: plain, kernel, kernel, plain."""
+@contextlib.contextmanager
+def bracketed(name):
+    """Wrap kernel ``name``'s loaded entry point so that each launch runs
+    between two CUDA events on the stream, behind a short spin kernel that
+    keeps the stream busy while the host enqueues the events and the
+    launch: each pair's interval is the kernel's own device time, without
+    the wrapper's host work or the launch's latency. Yields the list of
+    (start, stop) pairs, one per launch."""
+    import torch
+
+    from retrocapture_tpu_torch.ops.cuda import _build
+
+    raw = _build.load(name)
+    pairs = []
+
+    def timed(*args):
+        torch.cuda._sleep(_SPIN_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        rc = raw(*args)
+        stop.record()
+        pairs.append((start, stop))
+        return rc
+
+    _build._ENTRIES[name] = timed
+    try:
+        yield pairs
+    finally:
+        _build._ENTRIES[name] = raw
+
+
+def launch_ms(name, fn, iters):
+    """Mean device milliseconds of kernel ``name`` per launch over iters
+    calls of fn, each of which launches it once (see bracketed)."""
+    import torch
+
+    torch.cuda.synchronize()
+    with bracketed(name) as pairs:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    check(len(pairs) == iters, f"{name}: {len(pairs)} launches in {iters} calls")
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def launch_timer(name):
+    """launch_ms of kernel ``name`` as an in_turns timer."""
+    return lambda fn, iters: launch_ms(name, fn, iters)
+
+
+def in_turns(plain, kernel, iters, timer, plain_iters=None, kernel_timer=None):
+    """(plain_ms, kernel_ms) measured in turns: plain, kernel, kernel, plain.
+    ``plain_iters`` (default ``iters``) shortens the windows of a slow
+    plain version; ``kernel_timer`` (default ``timer``) times the kernel."""
     for f in (plain, kernel):
         f()
     import torch
 
+    plain_iters = plain_iters or iters
+    kernel_timer = kernel_timer or timer
     torch.cuda.synchronize()
-    p1 = timer(plain, iters)
-    k1 = timer(kernel, iters)
-    k2 = timer(kernel, iters)
-    p2 = timer(plain, iters)
+    p1 = timer(plain, plain_iters)
+    k1 = kernel_timer(kernel, iters)
+    k2 = kernel_timer(kernel, iters)
+    p2 = timer(plain, plain_iters)
     return (p1 + p2) / 2, (k1 + k2) / 2
 
 
@@ -261,6 +359,93 @@ def phase_warp(gen):
     return worst, (tex, u, v)
 
 
+@contextlib.contextmanager
+def env(**values):
+    """Set environment variables for the duration of a block."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_xphase(gen):
+    """The phase-form blit kernel: bit-equal to the dense blit kernel and
+    to its own plain version, and within 1 step of the f64 truth (exact
+    off knife edges)."""
+    import torch
+
+    from retrocapture_tpu_torch.ops.cuda import resample as rs
+
+    worst = 0
+    for b, h, w, oh, ow in XPHASE_GEOMETRIES:
+        ay, ax = rs.blit_matrices(h, w, ow, oh)
+        plan = rs._xphase_plan(ax, w, ow)
+        check(plan is not None, f"xphase: no phase plan for {w} -> {ow}")
+        tex = knife_tex(gen, (b, h, w, 3), DEV)
+        got = rs.resample_u8_xphase(tex, ay, plan)
+        dense = rs.resample_u8(tex, ay, ax)
+        ytaps = None if ay is None else tuple(torch.from_numpy(t).to(DEV) for t in rs.axis_taps(ay))
+        plain = rs.resample_u8_xphase_plain(tex, ytaps, plan)
+        what = f"{b}x{h}x{w} -> {oh}x{ow}"
+        check(got.shape == (b, oh, ow, 3) and got.dtype == torch.uint8, f"xphase shape {tuple(got.shape)}")
+        check(bool(torch.equal(got, dense)), f"xphase {what}: not bit-equal to the resample_u8 kernel")
+        check(bool(torch.equal(got, plain)), f"xphase {what}: not bit-equal to its plain version")
+        ay_t = None if ay is None else torch.from_numpy(ay).to(DEV)
+        ax_t = torch.from_numpy(ax).to(DEV)
+        for s in range(0, b, TRUTH_CHUNK):
+            q64, edge = _truth_u8(tex[s : s + TRUTH_CHUNK], ay_t, ax_t)
+            d = (got[s : s + TRUTH_CHUNK].to(torch.int32) - q64).abs()
+            check(int(d.max()) <= 1, f"xphase {what}: {int(d.max())} steps from f64 truth")
+            off = int((d[~edge] != 0).sum())
+            check(off == 0, f"xphase {what}: {off} non-knife-edge pixels off the f64 truth")
+            worst = max(worst, int(d.max()))
+            del q64, edge, d
+        say("8", f"resample_u8_xphase {what} (r={plan[0]}): ok (== resample_u8 kernel, == plain, "
+            f"<= 1 step of f64 truth)")
+        del got, dense, plain, tex
+    return worst
+
+
+def phase_blur(gen):
+    """The blur kernel, v2 and v1, against its plain version at the
+    mattias slice's shape: bit-equal (same loop, same order, no
+    contraction)."""
+    import torch
+
+    from retrocapture_tpu_torch.graph.kernels import mattias_groups, mattias_uv
+    from retrocapture_tpu_torch.ops.cuda import blur_groups as bg
+
+    h, w = SRC_HW
+    vw, vh = VIEWPORT
+    tex = torch.rand((MATTIAS_BATCH, h, w, 3), generator=gen, device=DEV) ** 2.2
+    u, v = mattias_uv(vw, vh, 0.5, DEV)
+    groups = mattias_groups(vw, vh)
+    errs = {}
+    for mode in ("v2", "v1"):
+        with env(RCTPU_BLUR=mode):
+            got = bg.blur5x5_groups(tex, u, v, groups)
+        plain = bg.blur5x5_groups_plain(tex, u, v, groups, bg.weight_tables(groups, mode))
+        torch.cuda.synchronize()
+        err = 0.0
+        for ch in (0, 1, 2):
+            check(tuple(got[ch].shape) == (MATTIAS_BATCH, vh, vw), f"blur {mode} shape {tuple(got[ch].shape)}")
+            check(bool(torch.isfinite(got[ch]).all()), f"blur {mode}: non-finite output")
+            err = max(err, float((got[ch] - plain[ch]).abs().max()))
+            check(bool(torch.equal(got[ch], plain[ch])), f"blur {mode} channel {ch}: not bit-equal to plain "
+                  f"(max |d| {err:.3e})")
+        errs[mode] = err
+        say("9", f"blur5x5_groups {mode} [{MATTIAS_BATCH},{h},{w},3] -> {vh}x{vw} x 9 groups: ok "
+            f"(bit-equal to plain)")
+        del got, plain
+    return errs, (tex, u, v, groups)
+
+
 def _cmp_u8(a, b, what):
     import torch
 
@@ -345,6 +530,141 @@ def phase_warp_pass(gen, Engine, tmp):
     return e, frames
 
 
+def _mattias_engine(Engine, path, dev=None):
+    e = Engine(viewport=VIEWPORT, device=dev or DEV)
+    check(e.load_preset(str(path)), f"load mattias stand-in: {e.last_error}")
+    return e
+
+
+def phase_mattias(gen, Engine, tmp):
+    """crt-mattias through Engine.apply: 3 applies at batch 32 (blur
+    kernel counted), CUDA against the port's CPU run on 2 frames; one
+    apply under RCTPU_BLUR=v1 and one under RCTPU_MATTIAS=preconv, each
+    counted on its own, its CUDA run against its CPU run and its warp
+    launches against the plain version at their own inputs."""
+    import torch
+
+    from retrocapture_tpu_torch.graph.kernels import _glsl_pow, mattias_groups, mattias_uv
+    from retrocapture_tpu_torch.ops.preconv_blur import group_samples
+    from retrocapture_tpu_torch.ops.cuda import blur_groups as bg
+    from retrocapture_tpu_torch.ops.cuda import resample as rs
+    from retrocapture_tpu_torch.ops.cuda import warp_sample as ws
+
+    # The stand-in for crt-mattias.glsl that the CPU tests drive too.
+    sys.path.insert(0, str(REPO / "tests"))
+    from _mattias_standin import write_standin
+
+    path = write_standin(tmp)
+    h, w = SRC_HW
+    frames = torch.randint(0, 256, (MATTIAS_BATCH, h, w, 3), generator=gen, device=DEV, dtype=torch.uint8)
+    e = _mattias_engine(Engine, path)
+    bg.LAUNCHES = rs.LAUNCHES = rs.XPHASE_LAUNCHES = ws.LAUNCHES = 0
+    for i in range(3):
+        out = e.apply(frames, output="u8")
+        torch.cuda.synchronize()
+        _engine_ok(e, f"mattias apply {i}")
+        check(tuple(out.shape) == (MATTIAS_BATCH, VIEWPORT[1], VIEWPORT[0], 3), f"mattias shape {tuple(out.shape)}")
+        check(out.dtype == torch.uint8 and out.device.type == torch.device(DEV).type, f"mattias dtype {out.dtype} on {out.device}")
+    launches = {"blur_groups_v2": bg.LAUNCHES}
+    check(launches["blur_groups_v2"] == 3 * MATTIAS_BATCH, f"mattias: blur kernel launches {bg.LAUNCHES}, "
+          f"want {3 * MATTIAS_BATCH}")
+    check(int(out[:, 0, 0].max()) == 0 and float(out[:, VIEWPORT[1] // 2].float().mean()) > 5,
+          "mattias: no curved black corner or no lit centre")
+    outs = []
+    for dev in (DEV, "cpu"):
+        e2 = _mattias_engine(Engine, path, dev)
+        outs.append(e2.apply(frames[:2].to(dev), output="u8").cpu())
+        _engine_ok(e2, f"mattias {dev} reference run")
+    dmax, frac = _cmp_u8(outs[0], outs[1], "mattias cuda vs cpu")
+    say("10", f"crt-mattias {MATTIAS_BATCH}x{h}x{w} rgb -> {VIEWPORT[1]}x{VIEWPORT[0]} u8, 3 applies: ok "
+        f"(blur launches {launches['blur_groups_v2']}; cuda vs cpu on 2 frames: max {dmax} step, {frac:.2e} of values)")
+    base = outs[0]
+
+    with env(RCTPU_BLUR="v1"):
+        e1 = _mattias_engine(Engine, path)
+        bg.LAUNCHES = 0
+        o1 = e1.apply(frames[:2], output="u8")
+        torch.cuda.synchronize()
+        launches["blur_groups_v1"] = bg.LAUNCHES
+    _engine_ok(e1, "mattias v1")
+    check(launches["blur_groups_v1"] == 2, f"mattias v1: blur kernel launches {launches['blur_groups_v1']}")
+    d1 = (o1.cpu().int() - base.int()).abs()
+    check(int(d1.max()) <= 2, f"mattias v1 vs v2: max {int(d1.max())} steps")
+    say("10", f"crt-mattias under RCTPU_BLUR=v1: ok (launches {launches['blur_groups_v1']}; vs v2 max "
+        f"{int(d1.max())} steps, {float((d1 != 0).float().mean()):.2e} of values)")
+
+    with env(RCTPU_MATTIAS="preconv"):
+        ep = _mattias_engine(Engine, path)
+        bg.LAUNCHES = ws.LAUNCHES = 0
+        op = ep.apply(frames[:2], output="u8")
+        torch.cuda.synchronize()
+        pre = {"warp_sample": ws.LAUNCHES, "blur_groups": bg.LAUNCHES}
+        ec = _mattias_engine(Engine, path, "cpu")
+        cpu = ec.apply(frames[:2].cpu(), output="u8")
+    _engine_ok(ep, "mattias preconv")
+    _engine_ok(ec, "mattias preconv cpu reference run")
+    check(pre["warp_sample"] == 2 * 9 and pre["blur_groups"] == 0, f"mattias preconv launches {pre}")
+    pmax, pfrac = _cmp_u8(op.cpu(), cpu, "mattias preconv cuda vs cpu")
+    dp = (op.cpu().int() - base.int()).abs()
+    check(float((dp > 5).float().mean()) < 5e-3, f"mattias preconv vs groups: {float((dp > 5).float().mean()):.2e} "
+          "of values beyond 5 steps")
+    say("10", f"crt-mattias under RCTPU_MATTIAS=preconv: ok (launches {pre}; cuda vs cpu on 2 frames: max {pmax} "
+        f"step, {pfrac:.2e} of values; vs groups max {int(dp.max())} steps, "
+        f"{float((dp > 5).float().mean()):.2e} of values beyond 5)")
+
+    # The warp kernel at the preconv path's own inputs: frame 0's
+    # pre-transformed texture, each group's single-channel Qfine and
+    # subcell coordinates built as blur_preconv builds them, held
+    # bit-equal (NEAREST) to the plain version.
+    p = _glsl_pow(frames[0].float() * (1.0 / 255.0), 2.2)
+    u, v = mattias_uv(VIEWPORT[0], VIEWPORT[1], 0.5, DEV)
+    shapes = []
+    for ch, q, u2, v2 in group_samples(p, u, v, mattias_groups(*VIEWPORT)):
+        got = ws.warp_sample(q, u2, v2, filter_linear=False, wrap_mode="clamp_to_edge")
+        want = ws.warp_sample_plain(q, u2, v2, filter_linear=False, wrap_mode="clamp_to_edge")
+        torch.cuda.synchronize()
+        check(tuple(got.shape) == (VIEWPORT[1], VIEWPORT[0], 1), f"preconv warp shape {tuple(got.shape)}")
+        check(bool(torch.equal(got, want)), f"preconv warp, channel {ch}, Qfine {tuple(q.shape)}: not bit-equal "
+              f"to plain (max |d| {float((got - want).abs().max()):.3e})")
+        shapes.append(tuple(q.shape[:2]))
+    say("10", f"warp_sample NEAREST clamp_to_edge on the 9 preconv textures (C=1, {min(shapes)}..{max(shapes)}) "
+        f"-> {VIEWPORT[1]}x{VIEWPORT[0]}: ok (bit-equal to plain)")
+    return e, frames, launches
+
+
+def phase_xphase_slice(gen, Engine, tmp):
+    """One feedback-ghost apply under RCTPU_XPHASE=on: the blit takes the
+    phase-form kernel and writes the bytes of the default path. The
+    preset's pass renders at 320x240 (absolute scale): with the shipped
+    preset's source scale 1.0 the last pass renders at the viewport, and
+    its 1080p -> 1080p blit has no integer phase structure (r = 1)."""
+    import torch
+
+    from retrocapture_tpu_torch.ops.cuda import resample as rs
+
+    h, w = SRC_HW
+    path = tmp / "feedback-ghost-320.glslp"
+    path.write_text(XPHASE_GLSLP.format(shader=PRESET.with_suffix(".glsl"), w=w, h=h))
+    frames = torch.randint(0, 256, (SLICE_BATCH, h * 3 // 2, w), generator=gen, device=DEV, dtype=torch.uint8)
+    outs = []
+    for mode in ("off", "on"):
+        with env(RCTPU_XPHASE=mode):
+            e = Engine(viewport=VIEWPORT, device=DEV)
+            check(e.load_preset(str(path)), f"load_preset: {e.last_error}")
+            e.set_input_format("nv12")
+            rs.LAUNCHES = rs.XPHASE_LAUNCHES = 0
+            outs.append(e.apply(frames, output="u8"))
+            torch.cuda.synchronize()
+            counts = (rs.LAUNCHES, rs.XPHASE_LAUNCHES)
+        _engine_ok(e, f"feedback-ghost RCTPU_XPHASE={mode}")
+        check(counts == ((1, 0) if mode == "off" else (0, 1)), f"RCTPU_XPHASE={mode}: launches "
+              f"(resample_u8, xphase) {counts}")
+    check(bool(torch.equal(outs[0], outs[1])), "feedback-ghost: RCTPU_XPHASE=on output differs from the default")
+    say("11", f"feedback-ghost-nv12 (pass at {w}x{h}) {SLICE_BATCH} frames under RCTPU_XPHASE=on: ok "
+        "(xphase launches 1, output == the default blit's)")
+    return counts[1]
+
+
 def main() -> int:
     if not (REPO / "retrocapture_tpu_torch" / "__init__.py").is_file():
         raise SystemExit("chip_smoke: retrocapture_tpu_torch is not beside this script")
@@ -400,17 +720,28 @@ def main() -> int:
         ay, ax = rs.blit_matrices(h, w, VIEWPORT[0], VIEWPORT[1])
         ay_t, ax_t = torch.from_numpy(ay).to(DEV), torch.from_numpy(ax).to(DEV)
         rs_fns = (lambda: rs.resample_u8_plain(tex, ay_t, ax_t), lambda: rs.resample_u8(tex, ay, ax))
-        rs_plain, rs_ms = in_turns(*rs_fns, 10, device_ms)
+        rs_plain, rs_ms = in_turns(*rs_fns, 10, device_ms, kernel_timer=launch_timer("resample_u8"))
         rs_plain_ev, rs_ev = in_turns(*rs_fns, 10, event_ms)
-        say("7", f"resample_u8 [{SLICE_BATCH},{h},{w},3] -> [{SLICE_BATCH},1080,1920,3]: device time kernel "
+        say("7", f"resample_u8 [{SLICE_BATCH},{h},{w},3] -> [{SLICE_BATCH},{VIEWPORT[1]},{VIEWPORT[0]},3]: device time kernel "
             f"{rs_ms:.3f} ms, plain {rs_plain:.3f} ms; per call (CUDA events, wrapper's host work included) "
             f"kernel {rs_ev:.3f} ms, plain {rs_plain_ev:.3f} ms  ({card})")
+        vw, vh = VIEWPORT
+        ftex = knife_tex(gen, (SLICE_BATCH, vh, vw, 3), DEV)
+        fay, fax = rs.blit_matrices(vh, vw, vw, vh)
+        fay_t, fax_t = (None if a is None else torch.from_numpy(a).to(DEV) for a in (fay, fax))
+        fg_plain, fg_ms = in_turns(
+            lambda: rs.resample_u8_plain(ftex, fay_t, fax_t), lambda: rs.resample_u8(ftex, fay, fax),
+            10, device_ms, kernel_timer=launch_timer("resample_u8"), plain_iters=2,
+        )
+        say("7", f"resample_u8 [{SLICE_BATCH},{vh},{vw},3] -> same (feedback-ghost's own blit): device time "
+            f"kernel {fg_ms:.3f} ms, plain {fg_plain:.3f} ms  ({card})")
+        del ftex
         wu0, wv0 = curvature_uv(VIEWPORT[1], VIEWPORT[0], DEV)
         ws_fns = (
             lambda: ws.warp_sample_plain(wtex, wu0, wv0, filter_linear=True, wrap_mode="clamp_to_border"),
             lambda: ws.warp_sample(wtex, wu0, wv0, filter_linear=True, wrap_mode="clamp_to_border"),
         )
-        ws_plain, ws_ms = in_turns(*ws_fns, 100, device_ms)
+        ws_plain, ws_ms = in_turns(*ws_fns, 100, device_ms, kernel_timer=launch_timer("warp_sample"))
         ws_plain_ev, ws_ev = in_turns(*ws_fns, 100, event_ms)
         say("7", f"warp_sample [{h},{w},4] @ [1080,1920] LINEAR: device time kernel {ws_ms:.4f} ms, plain "
             f"{ws_plain:.3f} ms; per call (CUDA events) kernel {ws_ev:.4f} ms, plain {ws_plain_ev:.3f} ms  ({card})")
@@ -430,6 +761,54 @@ def main() -> int:
         torch.cuda.synchronize()
         wdt = time.perf_counter() - t0
         say("7", f"warp-curve pass: {WARP_BATCH / wdt:.1f} frames/s at batch {WARP_BATCH}  ({card})")
+
+        # Phases 8-9: the new kernels against their plain versions.
+        from retrocapture_tpu_torch.ops.cuda import blur_groups as bg
+
+        xp_err = phase_xphase(gen)
+        blur_err, (btex, bu, bv, bgroups) = phase_blur(gen)
+
+        # Phases 10-11: the crt-mattias path and the xphase path, each
+        # counted from zero.
+        meng, mframes, mlaunches = phase_mattias(gen, Engine, Path(td))
+        launches.update(mlaunches)
+        launches["resample_xphase"] = phase_xphase_slice(gen, Engine, Path(td))
+        say("10-11", f"main-path launches: {launches}")
+
+        # Phase 12: timings of the new kernels, in turns, at the main
+        # paths' shapes, and the crt-mattias slice's rate.
+        xtex = knife_tex(gen, (SLICE_BATCH, h, w, 3), DEV)
+        xplan = rs._xphase_plan(ax, w, VIEWPORT[0])
+        ytaps = tuple(torch.from_numpy(t).to(DEV) for t in rs.axis_taps(ay))
+        xp_plain, xp_ms = in_turns(
+            lambda: rs.resample_u8_xphase_plain(xtex, ytaps, xplan), lambda: rs.resample_u8_xphase(xtex, ay, xplan),
+            10, device_ms, kernel_timer=launch_timer("resample_xphase"),
+        )
+        say("12", f"resample_u8_xphase [{SLICE_BATCH},{h},{w},3] -> [{SLICE_BATCH},{VIEWPORT[1]},{VIEWPORT[0]},3]: "
+            f"device time kernel "
+            f"{xp_ms:.3f} ms, plain {xp_plain:.3f} ms  ({card})")
+        blur_ms = {}
+        for mode in ("v2", "v1"):
+            tables = bg.weight_tables(bgroups, mode)
+            with env(RCTPU_BLUR=mode):
+                plain_ms, k_ms = in_turns(
+                    lambda: bg.blur5x5_groups_plain(btex, bu, bv, bgroups, tables),
+                    lambda: bg.blur5x5_groups(btex, bu, bv, bgroups),
+                    20, device_ms, kernel_timer=launch_timer("blur_groups"), plain_iters=2,
+                )
+            blur_ms[mode] = (k_ms, plain_ms)
+            say("12", f"blur5x5_groups {mode} [{MATTIAS_BATCH},{h},{w},3] -> [{MATTIAS_BATCH},{VIEWPORT[1]},{VIEWPORT[0]}] x 3 "
+                f"channels: device time kernel {k_ms:.3f} ms, plain {plain_ms:.3f} ms  ({card})")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            meng.apply(mframes, output="u8")
+        torch.cuda.synchronize()
+        mdt = (time.perf_counter() - t0) / 2
+        mdev = device_ms(lambda: meng.apply(mframes, output="u8"), 1)
+        say("12", f"crt-mattias slice: {MATTIAS_BATCH / mdt:.1f} frames/s at batch {MATTIAS_BATCH} "
+            f"({mdt * 1e3:.1f} ms per apply; device busy {mdev:.1f} ms of it, idle "
+            f"{100.0 * (1.0 - mdev / (mdt * 1e3)):.1f}%)  ({card})")
 
     kernels = [
         {
@@ -452,7 +831,28 @@ def main() -> int:
             "ms": ws_ms,
             "plain_ms": ws_plain,
         },
+        {
+            "name": "resample_xphase",
+            "route": "cuda",
+            "source": "retrocapture_tpu_torch/csrc/resample_xphase.cu",
+            "replaces": "retrocapture_tpu/ops/pallas/resample.py:220",
+            "launches": launches["resample_xphase"],
+            "max_abs_err": xp_err,
+            "ms": xp_ms,
+            "plain_ms": xp_plain,
+        },
     ]
+    for mode, line in (("v2", 515), ("v1", 221)):
+        kernels.append({
+            "name": f"blur_groups_{mode}",
+            "route": "cuda",
+            "source": "retrocapture_tpu_torch/csrc/blur_groups.cu",
+            "replaces": f"retrocapture_tpu/ops/pallas/blur_groups.py:{line}",
+            "launches": launches[f"blur_groups_{mode}"],
+            "max_abs_err": blur_err[mode],
+            "ms": blur_ms[mode][0],
+            "plain_ms": blur_ms[mode][1],
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({

@@ -1,7 +1,10 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C entry point (no PyTorch headers),
-so one nvcc call per file takes seconds. It is compiled for Hopper
+so one nvcc call per file takes seconds, and ``build_all`` runs them in
+parallel: a cold build of every kernel takes as long as the slowest
+source, not their sum, and stays so as kernels are added. Each file is
+compiled for Hopper
 (``sm_90a``) into ``build/kernels/`` at the root of the checkout, at the
 first launch of one of its kernels, under a name that carries a hash of
 the source: an edited kernel is rebuilt, an unchanged one is reused.
@@ -33,6 +36,8 @@ _I = ctypes.c_int
 KERNELS = {
     "resample_u8": ("resample_u8_launch", [_P, _P] + [_P] * 8 + [_I] * 6 + [_P]),
     "warp_sample": ("warp_sample_launch", [_P] * 4 + [_I] * 7 + [_P]),
+    "blur_groups": ("blur_groups_launch", [_P] * 6 + [_I] * 7 + [_P]),
+    "resample_xphase": ("resample_xphase_launch", [_P, _P] + [_P] * 7 + [_I] * 6 + [_P]),
 }
 
 NVCC_FLAGS = [
@@ -67,15 +72,27 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def _build(name: str, out: Path) -> None:
+def _build(names) -> None:
+    """Compile the libraries of ``names`` that are not built yet, one nvcc
+    per source, all started together."""
+    todo = {n: _library_path(n) for n in names if not _library_path(n).is_file()}
+    if not todo:
+        return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG[name] = (proc.stdout + proc.stderr).strip()
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{BUILD_LOG[name]}")
-    os.replace(tmp, out)
+    procs = {}
+    for name, out in todo.items():
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp)
+    failed = []
+    for name, (proc, tmp) in procs.items():
+        BUILD_LOG[name] = proc.communicate()[0].strip()
+        if proc.returncode != 0:
+            failed.append(name)
+        else:
+            os.replace(tmp, todo[name])
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(f"{n}:\n{BUILD_LOG[n]}" for n in failed))
 
 
 def load(name: str):
@@ -84,11 +101,9 @@ def load(name: str):
     fn = _ENTRIES.get(name)
     if fn is not None:
         return fn
-    path = _library_path(name)
-    if not path.is_file():
-        _build(name, path)
+    _build([name])
     entry, argtypes = KERNELS[name]
-    fn = getattr(ctypes.CDLL(str(path)), entry)
+    fn = getattr(ctypes.CDLL(str(_library_path(name))), entry)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     _ENTRIES[name] = fn
@@ -98,6 +113,7 @@ def load(name: str):
 def build_all() -> float:
     """Build (or find built) and load every kernel; seconds taken."""
     t0 = time.perf_counter()
+    _build(KERNELS)
     for name in KERNELS:
         load(name)
     return time.perf_counter() - t0

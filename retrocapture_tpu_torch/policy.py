@@ -14,6 +14,12 @@ ways this module pins down:
 
 ``ifloor32`` is the float -> int32 texel-index conversion every sampler
 path shares (the reference's ``ops/sampling._ifloor32``).
+
+``fma32`` is ``a*b + c`` rounded once, as XLA's CPU code generator
+contracts it inside a jitted fusion. Eager torch rounds the product and
+the sum apart, on the CPU and in CUDA, so the port calls ``fma32``
+exactly where a test shows that ``jax.jit`` of the reference function
+contracts and the bits matter.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["apply_policy", "to_device", "ifloor32", "INT32_MIN"]
+__all__ = ["apply_policy", "to_device", "ifloor32", "fma32", "INT32_MIN"]
 
 INT32_MIN = -2147483648
 
@@ -65,3 +71,20 @@ def ifloor32(x: torch.Tensor) -> torch.Tensor:
     f = torch.floor(x)
     i = f.double().clamp(-2147483648.0, 2147483647.0).to(torch.int64).to(torch.int32)
     return torch.where(torch.isfinite(f), i, torch.full_like(i, INT32_MIN))
+
+
+def _f64(x):
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float64)
+    return float(np.float32(x))
+
+
+def fma32(a, b, c) -> torch.Tensor:
+    """``a*b + c`` rounded once to float32, for f32 tensors or scalars
+    (a scalar is first rounded to f32, as a weak-typed constant is).
+    The product of two f32 values is exact in float64; the f64 sum is
+    then narrowed to f32. That differs from a true fused multiply-add
+    only where the double rounding of the sum lands otherwise (rare),
+    and it runs the same on the CPU and in CUDA. At least one operand
+    must be a tensor."""
+    return (_f64(a) * _f64(b) + _f64(c)).to(torch.float32)

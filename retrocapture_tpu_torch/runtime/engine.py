@@ -539,7 +539,7 @@ def _run_chain_impl(
             },
             device=source.device,
         )
-        color = _eval_pass_on_grid(cp, ctx, sh)
+        color = _run_pass(cp, ctx, sh)
         stored = framebuffer_store(
             color,
             float_framebuffer=cfg.float_framebuffer,
@@ -581,6 +581,22 @@ def _run_chain_impl(
         final = sample2d(final, u, v, filter_linear=True)
 
     return final, new_history, new_feedback
+
+
+def _run_pass(cp, ctx: PassContext, sh: PassShapes):
+    """One pass → [oh, ow, 4] color. A shader with a kernel-library entry
+    (graph/kernels.py: crt-mattias) takes that path when the entry finds
+    the pass feasible; the evaluator is the general path and the
+    semantic reference (the reference's engine.py:1196-1216; its
+    phase-factored evaluation is not ported yet)."""
+    from retrocapture_tpu_torch.graph.kernels import find_kernel
+
+    hand = find_kernel(ctx.program.preset.passes[cp.index].shader_path)
+    if hand is not None:
+        out = hand(ctx, sh)
+        if out is not None:
+            return out
+    return _eval_pass_on_grid(cp, ctx, sh)
 
 
 def _quad_transform(v_globals, ow: int, oh: int):

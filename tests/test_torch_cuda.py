@@ -13,6 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+import retrocapture_tpu_torch as torch_pkg
+from _mattias_standin import write_standin
+from retrocapture_tpu_torch.graph.kernels import mattias_groups, mattias_uv
+from retrocapture_tpu_torch.ops.cuda import blur_groups as bg
 from retrocapture_tpu_torch.ops.cuda import resample as rs
 from retrocapture_tpu_torch.ops.cuda import warp_sample as ws
 from retrocapture_tpu_torch.ops.sampling import WRAP_MODES, _axis_matrix
@@ -82,3 +86,57 @@ def test_warp_kernel_equals_plain_gather(cuda_device, linear, wrap):
     batch = torch.stack([tex, tex.flip(0).contiguous()])
     got_b = ws.warp_sample(batch, u, v, filter_linear=linear, wrap_mode=wrap).cpu().numpy()
     assert np.array_equal(got_b[0], got, equal_nan=True)
+
+
+@pytest.mark.parametrize("formulation", ["v1", "v2"])
+def test_blur_kernel_equals_plain(cuda_device, formulation, monkeypatch):
+    monkeypatch.setenv("RCTPU_BLUR", formulation)
+    rng = np.random.default_rng(17)
+    tex = torch.from_numpy(rng.random((2, 60, 80, 3)).astype(np.float32)).to(cuda_device)
+    u, v = mattias_uv(256, 128, 0.5, cuda_device)
+    u = u.clone()
+    u[0, :6] = torch.tensor([float("nan"), float("inf"), -float("inf"), 1e10, -1e10, 3e9])
+    groups = mattias_groups(256, 128)
+    before = bg.LAUNCHES
+    got = bg.blur5x5_groups(tex, u, v, groups)
+    assert bg.LAUNCHES == before + 1
+    want = bg.blur5x5_groups_plain(tex, u, v, groups, bg.weight_tables(groups, formulation))
+    for ch in (0, 1, 2):
+        assert got[ch].shape == (2, 128, 256)
+        assert torch.equal(got[ch], want[ch])
+    one = bg.blur5x5_groups(tex[1], u, v, groups)
+    assert torch.equal(one[2], got[2][1])
+
+
+@pytest.mark.parametrize("w,ow,h,oh", [(320, 1920, 240, 1080), (640, 1920, None, 333), (64, 256, 48, 144)])
+def test_xphase_kernel_equals_dense_kernel(cuda_device, w, ow, h, oh):
+    rng = np.random.default_rng(w + oh)
+    th = oh if h is None else h
+    grid = (rng.integers(0, 256, size=(2, th, w, 3)) / 255.0).astype(np.float32)
+    tex = np.where(rng.random((2, th, w, 3)) < 0.5, grid, rng.random((2, th, w, 3))).astype(np.float32)
+    t = torch.from_numpy(tex).to(cuda_device)
+    ax = _blit_axes(w, ow)
+    ay = None if h is None else _blit_axes(h, oh)
+    plan = rs._xphase_plan(ax, w, ow)
+    before = rs.XPHASE_LAUNCHES
+    got = rs.resample_u8_xphase(t, ay, plan)
+    assert rs.XPHASE_LAUNCHES == before + 1
+    assert torch.equal(got, rs.resample_u8(t, ay, ax))
+    ytaps = None if ay is None else tuple(torch.from_numpy(x).to(cuda_device) for x in rs.axis_taps(ay))
+    assert torch.equal(got, rs.resample_u8_xphase_plain(t, ytaps, plan))
+
+
+def test_mattias_slice_cuda_matches_cpu(cuda_device, tmp_path):
+    path = write_standin(str(tmp_path))
+    frames = np.random.default_rng(3).integers(0, 256, (2, 48, 64, 3), dtype=np.uint8)
+    outs = []
+    for dev in (cuda_device, "cpu"):
+        e = torch_pkg.Engine(viewport=(256, 144), device=dev)
+        assert e.load_preset(path), e.last_error
+        before = bg.LAUNCHES
+        outs.append(e.apply(torch.from_numpy(frames).to(dev), output="u8").cpu())
+        assert e.shader_active is True and e.last_error is None
+        if dev != "cpu":
+            assert bg.LAUNCHES == before + 2
+    d = (outs[0].int() - outs[1].int()).abs()
+    assert int(d.max()) <= 1 and float((d != 0).float().mean()) <= 1e-3

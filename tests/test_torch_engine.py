@@ -10,7 +10,10 @@ where an in-chain RGBA8 store flipped one code (then by at most
 LINEAR tap, the resampling dot products) and eager torch does not, so
 a value within an ulp of a u8 rounding boundary can round the other
 way. Measured on this suite (CPU): feedback-ghost u8 max 1 step in
-<= 1.35e-4 of values, f32 max 1/255 (+9e-10) in <= 1.35e-4 of values;
+<= 1.35e-4 of values, f32 max 1/255 (+9e-10) in <= 1.35e-4 of values
+(batch 1: 1.16e-5, batch 8: 9.84e-5; contracting ``mix`` alone made
+batch 1 bit-equal but left batch 8 at 9.11e-5, so the port keeps it
+uncontracted: ROADMAP queue 3);
 the warped pass bit-equal (u8 and f32); the history shader u8 max
 1 step in <= 1.39e-4 of values.
 """
@@ -155,7 +158,7 @@ def _rgb(seed, b):
 
 
 @pytest.mark.parametrize("output", ["u8", "f32"])
-@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("batch", [1, 4, 8])
 def test_feedback_ghost_nv12_matches_jax(batch, output):
     je, te = _engines(FEEDBACK, "nv12")
     for i in range(3):  # the feedback ping-pong carries across applies

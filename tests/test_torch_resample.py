@@ -13,13 +13,21 @@ bit-equal to it wherever the f64 value is not on a knife edge (within
 nonzero (index, weight) pairs; the table test pins those to the matrix.
 The kernel itself is held to the same truth on the card
 (tests/test_torch_cuda.py, chip_smoke.py phase 3).
+
+The phase-form blit (``resample_u8_xphase``, ``RCTPU_XPHASE=on``) runs
+the 2-tap sums of the dense kernel regrouped by source column, so its
+plain version is held bit for bit to the dense blit as that kernel
+computes it (2-tap y then 2-tap x from ``axis_taps``, f32, no
+contraction), and within 1 step (off knife edges: exactly) to the f64
+truth, to the JAX package's ``_resample_u8_xphase`` in interpret mode and
+to ``resample_u8``'s einsum plain version.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from retrocapture_tpu.ops.pallas.resample import _einsum_fallback
+from retrocapture_tpu.ops.pallas.resample import _einsum_fallback, _resample_u8_xphase
 from retrocapture_tpu.ops.pallas.resample import blit_u8 as jax_blit_u8
 from retrocapture_tpu.ops.sampling import _axis_matrix as jax_axis_matrix
 from retrocapture_tpu.ops.sampling import _axis_matrix_device
@@ -131,3 +139,133 @@ def test_quantize_stores_nan_as_zero():
     want = np.asarray(_einsum_fallback(tex, None, _blit_axes(4, 8)))
     assert np.array_equal(got, want)
     assert got[1:].max() == 0
+
+
+# The integer-ratio geometries of tests/test_kernels_resample.py, and the
+# slice's small size (r = 4).
+XPHASE_GEOMETRIES = [
+    pytest.param(320, 1920, 240, 1080, id="r6-with-y"),
+    pytest.param(640, 1920, 240, 1080, id="r3-with-y"),
+    pytest.param(320, 1920, None, 240, id="r6-y-identity"),
+    pytest.param(640, 1920, None, 333, id="r3-y-identity-odd"),
+    pytest.param(320, 1920, 240, 1077, id="r6-odd-oh"),
+    pytest.param(128, 256, 96, 192, id="r2-small"),
+    pytest.param(64, 256, 48, 144, id="r4-slice-small"),
+]
+
+
+def _dense_two_tap(tex, ay, ax):
+    """The dense blit as the resample_u8 kernel computes it: y then x,
+    each output value w0*t0 + w1*t1 over the row's two nonzeros, f32."""
+    t = torch.from_numpy(tex)
+    for axis, a in ((0, ay), (1, ax)):
+        if a is None:
+            continue
+        i0, w0, i1, w1 = (torch.from_numpy(x) for x in rs.axis_taps(a))
+        shape = (-1, 1, 1) if axis == 0 else (-1, 1)
+        t0 = t.index_select(axis, i0.long())
+        t1 = t.index_select(axis, i1.long())
+        t = w0.reshape(shape) * t0 + w1.reshape(shape) * t1
+    return rs._quantize_u8(t).numpy()
+
+
+@pytest.mark.parametrize("w,ow,h,oh", XPHASE_GEOMETRIES)
+def test_xphase_plain_matches_dense_blit_and_jax(w, ow, h, oh):
+    rng = np.random.default_rng(w * 7 + ow)
+    ax = _blit_axes(w, ow)
+    ay = None if h is None else _blit_axes(h, oh)
+    tex = _mk_tex(rng, oh if h is None else h, w)
+    plan = rs._xphase_plan(ax, w, ow)
+    assert plan is not None and plan[0] == ow // w
+    got = rs.resample_u8_xphase(torch.from_numpy(tex), ay, plan).numpy()
+    assert got.shape == (oh, ow, 3) and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, _dense_two_tap(tex, ay, ax))
+    q64, edge = _truth(tex, ay, ax)
+    want = np.asarray(_resample_u8_xphase(tex, ay, plan, interpret=True))
+    dense = rs.resample_u8(torch.from_numpy(tex), ay, ax).numpy()
+    for label, out in (("port xphase", got), ("jax xphase", want), ("port einsum", dense)):
+        diff = np.abs(out.astype(np.int32) - q64)
+        assert diff.max() <= 1, f"{label}: {diff.max()} steps from f64 truth"
+        assert (diff[~edge] == 0).all(), f"{label}: non-knife-edge pixels off the f64 truth"
+    for other in (want, dense):
+        d = np.abs(got.astype(np.int32) - other.astype(np.int32))
+        assert d.max() <= 1 and (d[~edge] == 0).all()
+
+
+def test_xphase_batch_equals_frames():
+    rng = np.random.default_rng(9)
+    ay, ax = rs.blit_matrices(48, 64, 256, 144)
+    plan = rs._xphase_plan(ax, 64, 256)
+    batch = torch.from_numpy(np.stack([_mk_tex(rng, 48, 64), _mk_tex(rng, 48, 64)]))
+    both = rs.resample_u8_xphase(batch, ay, plan)
+    for k in range(2):
+        assert torch.equal(both[k], rs.resample_u8_xphase(batch[k], ay, plan))
+    with pytest.raises(ValueError):
+        rs.resample_u8_xphase(batch[..., :32, :], ay, plan)
+    with pytest.raises(RuntimeError):
+        rs.resample_u8_xphase(torch.empty((48, 64, 3), device="meta"), ay, plan)
+
+
+@pytest.mark.parametrize("vw,takes", [(256, True), (160, False), (64, False)])
+def test_blit_u8_takes_xphase_under_rctpu_xphase(monkeypatch, vw, takes):
+    """RCTPU_XPHASE=on routes an integer x-upscale through the phase form
+    (resample.py:421-425 of the reference); other ratios and the default
+    keep the dense blit."""
+    rng = np.random.default_rng(4)
+    tex = torch.from_numpy(_mk_tex(rng, 48, 64))
+    calls = []
+    real = rs.resample_u8_xphase
+
+    def spy(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(rs, "resample_u8_xphase", spy)
+    default = rs.blit_u8(tex, vw, 144)
+    assert calls == []
+    monkeypatch.setenv("RCTPU_XPHASE", "on")
+    got = rs.blit_u8(tex, vw, 144)
+    assert len(calls) == int(takes)
+    d = np.abs(got.numpy().astype(np.int32) - default.numpy().astype(np.int32))
+    assert got.shape == (144, vw, 3) and d.max() <= 1
+
+
+def test_engine_blit_takes_xphase_when_the_last_pass_is_source_sized(monkeypatch, tmp_path):
+    """feedback-ghost with its pass at the source size (absolute scale):
+    the viewport blit is an integer x-upscale (64 -> 256, r = 4), which
+    RCTPU_XPHASE=on sends through the phase form. The shipped preset's
+    pass renders at the viewport (a source-scale-1 last pass does), so
+    its blit has r = 1 and never takes it."""
+    import os
+
+    import retrocapture_tpu_torch as torch_pkg
+
+    shader = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets", "presets", "feedback-ghost.glsl")
+    path = tmp_path / "fg.glslp"
+    path.write_text(f"shaders = 1\nshader0 = {shader}\nfilter_linear0 = false\nscale_type0 = absolute\nscale_x0 = 64\nscale_y0 = 48\n")
+    frames = torch.from_numpy(np.random.default_rng(8).integers(0, 256, (2, 72, 64), dtype=np.uint8))
+    calls = []
+    real = rs.resample_u8_xphase
+
+    def spy(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(rs, "resample_u8_xphase", spy)
+    outs = []
+    for mode in ("off", "on"):
+        monkeypatch.setenv("RCTPU_XPHASE", mode)
+        e = torch_pkg.Engine(viewport=(256, 144), device="cpu")
+        assert e.load_preset(str(path)), e.last_error
+        e.set_input_format("nv12")
+        outs.append(e.apply(frames, output="u8").numpy())
+        assert e.shader_active and e.last_error is None
+    assert calls == [1]
+    d = np.abs(outs[0].astype(np.int32) - outs[1].astype(np.int32))
+    # The chain's RGBA8 store puts every blit input on the u8 grid, where
+    # the einsum and the 2-tap sums round ties apart (measured 0.32% of
+    # values; tests/test_kernels_resample.py:120-123 allows 1e-2).
+    assert outs[1].shape == (2, 144, 256, 3) and d.max() <= 1 and (d != 0).mean() <= 1e-2
+    # The shipped preset's blit is 1080p -> 1080p-like (r = 1): no phase plan.
+    ay, ax = rs.blit_matrices(144, 256, 256, 144)
+    assert ax is None or rs._xphase_plan(ax, 256, 256) is None

@@ -7,9 +7,12 @@ are copied. Each copy may differ from its original only in the package
 name on its import lines.
 """
 
+import ast
 import pathlib
 import subprocess
 import sys
+
+import numpy as np
 
 import pytest
 
@@ -42,6 +45,84 @@ def test_copied_module_matches_original(rel):
     original = _normalised(REPO / "retrocapture_tpu" / rel, "retrocapture_tpu")
     copy = _normalised(REPO / "retrocapture_tpu_torch" / rel, "retrocapture_tpu_torch")
     assert copy == original, f"retrocapture_tpu_torch/{rel} drifted from retrocapture_tpu/{rel}"
+
+
+# Numpy helpers and constants the port copies into modules of its own
+# (their originals sit beside jax code): (reference file, port file,
+# top-level names). These carry the plans and constants the kernels run
+# on, as weights would in a model.
+COPIED_DEFS = [
+    (
+        "ops/pallas/blur_groups.py",
+        "ops/cuda/blur_groups.py",
+        ["TX", "TY", "_KB_CAP", "_VMEM_TEX_BYTES", "BlurGroup", "_rank2", "_static_plan", "_static_plan_v2"],
+    ),
+    ("ops/pallas/resample.py", "ops/cuda/resample.py", ["_xphase_plan"]),
+    ("ops/pallas/preconv_blur.py", "ops/preconv_blur.py", ["_PAD", "_AxisPlan", "GroupPlan", "plan_group"]),
+    ("graph/kernels.py", "graph/kernels.py", ["_MATTIAS_W", "_mattias_max_dudv", "_MATTIAS_GROUPS"]),
+]
+
+
+def _top_level(path: pathlib.Path, names) -> dict[str, str]:
+    src = path.read_text(encoding="utf-8")
+    out = {}
+    for node in ast.parse(src).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            name = node.name
+        elif isinstance(node, ast.Assign) and isinstance(node.targets[0], ast.Name):
+            name = node.targets[0].id
+        else:
+            continue
+        if name in names:
+            out[name] = ast.get_source_segment(src, node)
+    return out
+
+
+@pytest.mark.parametrize("ref,port,names", COPIED_DEFS, ids=[c[1] for c in COPIED_DEFS])
+def test_copied_helpers_match_original(ref, port, names):
+    original = _top_level(REPO / "retrocapture_tpu" / ref, names)
+    copy = _top_level(REPO / "retrocapture_tpu_torch" / port, names)
+    assert sorted(original) == sorted(copy) == sorted(names)
+    for name in names:
+        assert copy[name] == original[name], f"retrocapture_tpu_torch/{port}: {name} drifted from retrocapture_tpu/{ref}"
+
+
+def test_copied_constants_and_plans_equal_the_reference():
+    """The same values at run time: the mattias constants, and the plans
+    the copied helpers build for the slice's geometry."""
+    from retrocapture_tpu.graph import kernels as jk
+    from retrocapture_tpu.ops.pallas import blur_groups as jbg
+    from retrocapture_tpu.ops.pallas import preconv_blur as jpc
+    from retrocapture_tpu.ops.pallas import resample as jrs
+    from retrocapture_tpu.ops.sampling import _axis_matrix
+
+    from retrocapture_tpu_torch.graph import kernels as tk
+    from retrocapture_tpu_torch.ops import preconv_blur as pc
+    from retrocapture_tpu_torch.ops.cuda import blur_groups as bg
+    from retrocapture_tpu_torch.ops.cuda import resample as rs
+
+    assert np.array_equal(tk._MATTIAS_W, jk._MATTIAS_W) and tk._MATTIAS_W.dtype == jk._MATTIAS_W.dtype
+    assert tk._MATTIAS_GROUPS == jk._MATTIAS_GROUPS
+    assert tk._MATTIAS_MAX_DUDV == jk._MATTIAS_MAX_DUDV
+    groups = tk.mattias_groups(1920, 1080)
+    jgroups = [jbg.BlurGroup(g.channel, g.bx, g.by, g.xo, g.yo, g.weights, g.scale) for g in groups]
+    for g, w in zip(groups, bg.weight_tables(groups, "v1")):
+        (a0, b0), (a1, b1) = bg._rank2(g.weights * g.scale)[0]
+        (c0, d0), (c1, d1) = jbg._rank2(g.weights * g.scale)[0]
+        for x, y in ((a0, c0), (b0, d0), (a1, c1), (b1, d1)):
+            assert np.array_equal(x, y)
+    p = bg._static_plan_v2(groups, 320, 240, 1080, 1920, tk._MATTIAS_MAX_DUDV)
+    q = jbg._static_plan_v2(jgroups, 320, 240, 1080, 1920, jk._MATTIAS_MAX_DUDV)
+    assert len(p) == len(q) == 9
+    for a, b in zip(p, q):
+        assert np.array_equal(a["w32"], b["w32"]) and (a["xi"], a["yj"], a["taus"], a["R"]) == (b["xi"], b["yj"], b["taus"], b["R"])
+    for g, jg in zip(groups, jgroups):
+        a, b = pc.plan_group(g, 320, 240), jpc.plan_group(jg, 320, 240)
+        assert np.array_equal(a.table, b.table) and np.array_equal(a.droffs, b.droffs) and np.array_equal(a.dsoffs, b.dsoffs)
+    coord = ((np.arange(1920, dtype=np.float64) + 0.5) / 1920.0).astype(np.float32)
+    ax = _axis_matrix(coord, 320, True, "clamp_to_edge")
+    (r, d, w0, w1), (jr, jd, jw0, jw1) = rs._xphase_plan(ax, 320, 1920), jrs._xphase_plan(ax, 320, 1920)
+    assert (r, d) == (jr, jd) and np.array_equal(w0, jw0) and np.array_equal(w1, jw1)
 
 
 _PROBE = r"""
