@@ -8,22 +8,26 @@ Builds the port's CUDA kernels from ``retrocapture_tpu_torch/csrc`` (into
 its plain torch version on the card, drives the main path
 (``Engine.load_preset`` + ``Engine.apply``) at full size for the
 feedback-ghost-nv12 slice, a warped curvature pass, the crt-mattias hand
-kernel (default blur, ``RCTPU_BLUR=v1`` and ``RCTPU_MATTIAS=preconv``)
-and feedback-ghost under ``RCTPU_XPHASE=on``, compares them with the
-port's own CPU run, and times the kernels (device time per launch from
-CUDA events around it, and per call through the wrapper) against their
-plain versions (device time from torch.profiler) and the slices. Prints
-one line per phase, the kernel table as a JSON line, and as its last line
-``{"ok": true, "device": {...}}``. Any failed check raises, so the run
-exits non-zero and prints no result; so does a machine without CUDA. It
-imports nothing of JAX.
+kernel (default blur, ``RCTPU_BLUR=v1`` and ``RCTPU_MATTIAS=preconv``),
+feedback-ghost under ``RCTPU_XPHASE=on`` and the xbr-lv2 hand kernel,
+compares them with the port's own CPU run, and times the kernels (device
+time per launch from CUDA events around it, and per call through the
+wrapper) against their plain versions (device time from torch.profiler),
+one PyTorch library call computing the same function where there is one,
+and their bound on the card; and the slices. Prints one line per phase,
+the kernel table as a JSON line, and as its last line ``{"ok": true,
+"device": {...}}``. Any failed check raises, so the run exits non-zero and
+prints no result; so does a machine without CUDA. It imports nothing of
+JAX.
 """
 
 from __future__ import annotations
 
 import contextlib
+import cProfile
 import json
 import os
+import pstats
 import subprocess
 import sys
 import tempfile
@@ -37,7 +41,19 @@ SRC_HW = (240, 320)
 SLICE_BATCH = 128
 WARP_BATCH = 8
 MATTIAS_BATCH = 32
+XBR_BATCH = 64  # bench.py's xbr-lv2-1080p
 DEV = "cuda"  # the card; the checks below never fall back to the CPU
+
+# The card's published peaks (H100 SXM, dense, at 700 W): a kernel's bound
+# is the larger of its bytes over the memory rate and its f32 operations
+# over the f32 rate.
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+
+# (src_h, src_w, viewport) of the xbr kernel checks beyond the main path's
+# own shape: x ratios 2 and 3, an output width that is no integer ratio
+# (64 -> 250), and y ratio 4.5.
+XBR_GEOMETRIES = [(120, 160, (320, 240)), (80, 100, (300, 240)), (48, 64, (250, 144)), (60, 80, (480, 270))]
 
 WARP_GLSLP = """shaders = 1
 shader0 = warp-curve.glsl
@@ -233,6 +249,44 @@ def launch_ms(name, fn, iters):
 def launch_timer(name):
     """launch_ms of kernel ``name`` as an in_turns timer."""
     return lambda fn, iters: launch_ms(name, fn, iters)
+
+
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the least time the card could take to move
+    ``nbytes`` and do ``flops`` f32 operations."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_F32_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def blit_bound(tex, dst_h, dst_w):
+    """bound() of a u8 blit of ``tex [B, H, W, 3]`` f32 to dst_h x dst_w:
+    the texture, the u8 output and two (index, weight) taps per output row
+    and column; 4 taps x (mul, add), the scale and the rounding per value."""
+    values = tex.shape[0] * dst_h * dst_w * 3
+    return bound(nbytes(tex) + values + 16 * (dst_h + dst_w), 10 * values)
+
+
+@contextlib.contextmanager
+def recorded(module, name):
+    """Record the arguments of every call of ``module.name`` (which still
+    runs) for the duration of a block."""
+    orig = getattr(module, name)
+    calls = []
+
+    def rec(*args):
+        calls.append(args)
+        return orig(*args)
+
+    setattr(module, name, rec)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
 
 
 def in_turns(plain, kernel, iters, timer, plain_iters=None, kernel_timer=None):
@@ -551,7 +605,6 @@ def phase_mattias(gen, Engine, tmp):
     from retrocapture_tpu_torch.ops.cuda import warp_sample as ws
 
     # The stand-in for crt-mattias.glsl that the CPU tests drive too.
-    sys.path.insert(0, str(REPO / "tests"))
     from _mattias_standin import write_standin
 
     path = write_standin(tmp)
@@ -665,6 +718,100 @@ def phase_xphase_slice(gen, Engine, tmp):
     return counts[1]
 
 
+def _xbr_engine(Engine, path, viewport, small=0.0, dev=None):
+    e = Engine(viewport=viewport, device=dev or DEV)
+    check(e.load_preset(str(path)), f"load xbr stand-in: {e.last_error}")
+    check(e.set_parameter("small_details", small), "xbr stand-in has no small_details")
+    return e
+
+
+def _xbr_plain_args(S, bx, fpx, fpy):
+    import numpy as np
+    import torch
+
+    return (S,) + tuple(torch.from_numpy(np.asarray(a)).to(S.device) for a in (bx, fpx, fpy))
+
+
+def phase_xbr_kernel(gen, Engine, path):
+    """The xbr epilogue kernel against its plain version, bit-equal, on
+    the front section's own S: one random frame at the main path's shape
+    (240x320 -> 1080x1920) and at XBR_GEOMETRIES, small_details 0 and 1.
+    Returns the worst |d| and the main path's epilogue inputs."""
+    import torch
+
+    from retrocapture_tpu_torch.ops.cuda import xbr_epilogue as xe
+
+    worst, main = 0.0, None
+    for small in (0.0, 1.0):
+        for h, w, vp in [SRC_HW + (VIEWPORT,)] + XBR_GEOMETRIES:
+            frame = torch.randint(0, 256, (1, h, w, 3), generator=gen, device=DEV, dtype=torch.uint8)
+            e = _xbr_engine(Engine, path, vp, small)
+            with recorded(xe, "xbr_epilogue") as calls:
+                e.apply(frame, output="u8")
+            _engine_ok(e, f"xbr {h}x{w} -> {vp}")
+            what = f"S {tuple(calls[0][0].shape) if calls else None} -> {vp[1]}x{vp[0]} small_details={small:g}"
+            check(len(calls) == 1, f"xbr {h}x{w} -> {vp}: the hand kernel did not engage ({len(calls)} calls)")
+            args = calls[0]
+            got = xe.xbr_epilogue(*args)
+            want = xe.xbr_epilogue_plain(*_xbr_plain_args(*args))
+            torch.cuda.synchronize()
+            check(tuple(got.shape) == (1, vp[1], vp[0], 4), f"xbr epilogue {what}: shape {tuple(got.shape)}")
+            err = float((got - want).abs().max())
+            check(bool(torch.equal(got, want)), f"xbr epilogue {what}: not bit-equal to plain (max |d| {err:.3e})")
+            worst = max(worst, err)
+            if main is None:
+                main = args
+            say("13", f"xbr_epilogue {what}: ok (bit-equal to plain)")
+    return worst, main
+
+
+def phase_xbr_slice(gen, Engine, path):
+    """xbr-lv2 through Engine.apply: 3 applies at batch 64 (epilogue
+    kernel counted: one launch per frame), CUDA against the port's CPU run
+    on 2 frames, and one apply with small_details = 1."""
+    import torch
+
+    from retrocapture_tpu_torch.ops.cuda import xbr_epilogue as xe
+
+    h, w = SRC_HW
+    vw, vh = VIEWPORT
+    frames = torch.randint(0, 256, (XBR_BATCH, h, w, 3), generator=gen, device=DEV, dtype=torch.uint8)
+    e = _xbr_engine(Engine, path, VIEWPORT)
+    xe.LAUNCHES = 0
+    for i in range(3):
+        out = e.apply(frames, output="u8")
+        torch.cuda.synchronize()
+        _engine_ok(e, f"xbr apply {i}")
+        check(tuple(out.shape) == (XBR_BATCH, vh, vw, 3), f"xbr shape {tuple(out.shape)}")
+        check(out.dtype == torch.uint8 and out.device.type == torch.device(DEV).type, f"xbr dtype {out.dtype} on {out.device}")
+    launches = xe.LAUNCHES
+    check(launches == 3 * XBR_BATCH, f"xbr: epilogue kernel launches {launches}, want {3 * XBR_BATCH}")
+    # Not the stand-in's passthrough: xbr blends the NEAREST upscale at edges.
+    ys = (torch.arange(vh, device=DEV) * h) // vh
+    xs = (torch.arange(vw, device=DEV) * w) // vw
+    moved = float((out[:2] != frames[:2][:, ys][:, :, xs]).float().mean())
+    check(moved > 0.05, f"xbr: output equals the NEAREST upscale in {1 - moved:.3f} of values")
+    outs = []
+    for dev in (DEV, "cpu"):
+        e2 = _xbr_engine(Engine, path, VIEWPORT, dev=dev)
+        outs.append(e2.apply(frames[:2].to(dev), output="u8").cpu())
+        _engine_ok(e2, f"xbr {dev} reference run")
+    dmax, frac = _cmp_u8(outs[0], outs[1], "xbr cuda vs cpu")
+    say("14", f"xbr-lv2 {XBR_BATCH}x{h}x{w} rgb -> {vh}x{vw} u8, 3 applies: ok (epilogue launches {launches}; "
+        f"cuda vs cpu on 2 frames: max {dmax} step, {frac:.2e} of values; {moved:.3f} of values off the NEAREST upscale)")
+    es = _xbr_engine(Engine, path, VIEWPORT, small=1.0)
+    xe.LAUNCHES = 0
+    out = es.apply(frames, output="u8")
+    torch.cuda.synchronize()
+    _engine_ok(es, "xbr small_details=1")
+    check(xe.LAUNCHES == XBR_BATCH and tuple(out.shape) == (XBR_BATCH, vh, vw, 3),
+          f"xbr small_details=1: launches {xe.LAUNCHES}, shape {tuple(out.shape)}")
+    d = (out.int() - e.apply(frames, output="u8").int()).abs()
+    say("14", f"xbr-lv2 small_details=1, {XBR_BATCH} frames: ok (launches {XBR_BATCH}; differs from "
+        f"small_details=0 in {float((d != 0).float().mean()):.2e} of values)")
+    return e, frames, launches
+
+
 def main() -> int:
     if not (REPO / "retrocapture_tpu_torch" / "__init__.py").is_file():
         raise SystemExit("chip_smoke: retrocapture_tpu_torch is not beside this script")
@@ -673,6 +820,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this run needs an NVIDIA GPU")
     sys.path.insert(0, str(REPO))
+    sys.path.insert(0, str(REPO / "tests"))  # the stand-in shaders the CPU tests drive too
 
     # Phase 1: the card.
     smi = subprocess.run(
@@ -733,8 +881,9 @@ def main() -> int:
             lambda: rs.resample_u8_plain(ftex, fay_t, fax_t), lambda: rs.resample_u8(ftex, fay, fax),
             10, device_ms, kernel_timer=launch_timer("resample_u8"), plain_iters=2,
         )
+        fg_bound = blit_bound(ftex, vh, vw)
         say("7", f"resample_u8 [{SLICE_BATCH},{vh},{vw},3] -> same (feedback-ghost's own blit): device time "
-            f"kernel {fg_ms:.3f} ms, plain {fg_plain:.3f} ms  ({card})")
+            f"kernel {fg_ms:.3f} ms, plain {fg_plain:.3f} ms, bound {fg_bound[0]:.3f} ms ({fg_bound[1]})  ({card})")
         del ftex
         wu0, wv0 = curvature_uv(VIEWPORT[1], VIEWPORT[0], DEV)
         ws_fns = (
@@ -810,49 +959,107 @@ def main() -> int:
             f"({mdt * 1e3:.1f} ms per apply; device busy {mdev:.1f} ms of it, idle "
             f"{100.0 * (1.0 - mdev / (mdt * 1e3)):.1f}%)  ({card})")
 
+        # Phases 13-14: the xbr epilogue kernel against its plain version,
+        # and the xbr-lv2 path, counted from zero.
+        from _xbr_standin import write_standin as write_xbr_standin
+        from retrocapture_tpu_torch.ops.cuda import xbr_epilogue as xe
+
+        xpath = write_xbr_standin(td)
+        xb_err, (xS, xbx, xfpx, xfpy) = phase_xbr_kernel(gen, Engine, xpath)
+        xeng, xframes, launches["xbr_epilogue"] = phase_xbr_slice(gen, Engine, xpath)
+        say("13-14", f"main-path launches: {launches}")
+
+        # Phase 15: the xbr kernel against the plain tail, in turns, at the
+        # main path's shape; the xbr slice's rate; the library calls.
+        xargs = _xbr_plain_args(xS, xbx, xfpx, xfpy)
+        xb_plain, xb_ms = in_turns(
+            lambda: xe.xbr_epilogue_plain(*xargs), lambda: xe.xbr_epilogue(xS, xbx, xfpx, xfpy),
+            50, device_ms, kernel_timer=launch_timer("xbr_epilogue"), plain_iters=5,
+        )
+        say("15", f"xbr_epilogue S {tuple(xS.shape)} -> [1,{VIEWPORT[1]},{VIEWPORT[0]},4]: device time kernel "
+            f"{xb_ms:.4f} ms, plain tail {xb_plain:.3f} ms  ({card})")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            xeng.apply(xframes, output="u8")
+        torch.cuda.synchronize()
+        xdt = (time.perf_counter() - t0) / 2
+        xdev = device_ms(lambda: xeng.apply(xframes, output="u8"), 1)
+        say("15", f"xbr-lv2 slice: {XBR_BATCH / xdt:.1f} frames/s at batch {XBR_BATCH} "
+            f"({xdt * 1e3:.1f} ms per apply; device busy {xdev:.1f} ms of it, idle "
+            f"{100.0 * (1.0 - xdev / (xdt * 1e3)):.1f}%)  ({card})")
+        prof = cProfile.Profile()
+        prof.enable()
+        xeng.apply(xframes[:8], output="u8")
+        torch.cuda.synchronize()
+        prof.disable()
+        top = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][2])[:4]
+        say("15", "xbr-lv2 host profile of an 8-frame apply, by own time: " + "; ".join(
+            f"{fn[2]} ({Path(fn[0]).name}:{fn[1]}) {st[2] * 1e3 / 8:.1f} ms/frame" for fn, st in top))
+        import torch.nn.functional as F
+
+        # One PyTorch call computing the kernel's function on the same
+        # inputs (the u8 pack of the blits aside), timed only here.
+        x_nchw = tex.permute(0, 3, 1, 2).contiguous()
+        w_nchw = wtex.permute(2, 0, 1)[None].contiguous()
+        wgrid = torch.stack([wu0 * 2.0 - 1.0, wv0 * 2.0 - 1.0], dim=-1)[None]
+        lib_calls = {
+            "interpolate": (lambda: F.interpolate(x_nchw, size=(vh, vw), mode="bilinear", align_corners=False), 5),
+            "grid_sample": (lambda: F.grid_sample(
+                w_nchw, wgrid, mode="bilinear", padding_mode="zeros", align_corners=False), 100),
+        }
+        lib = {}
+        for name, (fn, iters) in lib_calls.items():
+            fn()
+            lib[name] = (event_ms(fn, iters) + event_ms(fn, iters)) / 2
+        say("15", f"library calls: F.interpolate bilinear [{SLICE_BATCH},3,{h},{w}] -> {vh}x{vw} f32 "
+            f"{lib['interpolate']:.3f} ms; F.grid_sample bilinear zeros [1,4,{h},{w}] @ {vh}x{vw} "
+            f"{lib['grid_sample']:.4f} ms  ({card})")
+        del x_nchw
+
+    # Each kernel's bound at its timed shape: inputs read once, outputs
+    # written once; f32 operations counted per output value or pixel.
+    vw, vh = VIEWPORT
+    h, w = SRC_HW
+    px = vh * vw
+    bounds = {
+        "resample_u8": blit_bound(tex, vh, vw),
+        "resample_xphase": blit_bound(tex, vh, vw),
+        "warp_sample": bound(nbytes(wtex, wu0, wv0) + px * 4 * 4, 40 * px),  # coords + 4 taps x 4 channels
+        "blur_groups": bound(nbytes(btex, bu, bv) + 3 * MATTIAS_BATCH * px * 4, 2 * 25 * len(bgroups) * MATTIAS_BATCH * px),
+        # 253 f32 operations per pixel: 15 colour scales, 4 corners x 35
+        # (4 ramps of 7, 4 flag products, 3 max), 72 for the mixes, 17 for
+        # c_df and the select, 9 for the last mix.
+        "xbr_epilogue": bound(nbytes(xS) + 4 * (2 * len(xbx) + len(xfpy) + 65) + px * 16, 253 * px),
+    }
+
+    def entry(name, source, replaces, launched, err, ms, plain, bound_of, library):
+        b_ms, b_by = bounds[bound_of]
+        return {
+            "name": name, "route": "cuda", "source": f"retrocapture_tpu_torch/csrc/{source}",
+            "replaces": f"retrocapture_tpu/ops/pallas/{replaces}", "launches": launched, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None if library is None else lib[library],
+        }
+
+    # library_ms: F.interpolate (bilinear, align_corners=False) computes the
+    # blits' resample without the u8 pack, F.grid_sample (bilinear, zeros)
+    # the warped LINEAR clamp_to_border tap. None for blur_groups (225
+    # warped NEAREST taps with per-group weights: no single call) and
+    # xbr_epilogue (the xbr blend: no library operator).
     kernels = [
-        {
-            "name": "resample_u8",
-            "route": "cuda",
-            "source": "retrocapture_tpu_torch/csrc/resample_u8.cu",
-            "replaces": "retrocapture_tpu/ops/pallas/resample.py:290",
-            "launches": launches["resample_u8"],
-            "max_abs_err": rs_err,
-            "ms": rs_ms,
-            "plain_ms": rs_plain,
-        },
-        {
-            "name": "warp_sample",
-            "route": "cuda",
-            "source": "retrocapture_tpu_torch/csrc/warp_sample.cu",
-            "replaces": "retrocapture_tpu/ops/pallas/warp_sample.py:204",
-            "launches": launches["warp_sample"],
-            "max_abs_err": ws_err,
-            "ms": ws_ms,
-            "plain_ms": ws_plain,
-        },
-        {
-            "name": "resample_xphase",
-            "route": "cuda",
-            "source": "retrocapture_tpu_torch/csrc/resample_xphase.cu",
-            "replaces": "retrocapture_tpu/ops/pallas/resample.py:220",
-            "launches": launches["resample_xphase"],
-            "max_abs_err": xp_err,
-            "ms": xp_ms,
-            "plain_ms": xp_plain,
-        },
+        entry("resample_u8", "resample_u8.cu", "resample.py:290", launches["resample_u8"], rs_err, rs_ms, rs_plain,
+              "resample_u8", "interpolate"),
+        entry("warp_sample", "warp_sample.cu", "warp_sample.py:204", launches["warp_sample"], ws_err, ws_ms, ws_plain,
+              "warp_sample", "grid_sample"),
+        entry("resample_xphase", "resample_xphase.cu", "resample.py:220", launches["resample_xphase"], xp_err, xp_ms,
+              xp_plain, "resample_xphase", "interpolate"),
     ]
     for mode, line in (("v2", 515), ("v1", 221)):
-        kernels.append({
-            "name": f"blur_groups_{mode}",
-            "route": "cuda",
-            "source": "retrocapture_tpu_torch/csrc/blur_groups.cu",
-            "replaces": f"retrocapture_tpu/ops/pallas/blur_groups.py:{line}",
-            "launches": launches[f"blur_groups_{mode}"],
-            "max_abs_err": blur_err[mode],
-            "ms": blur_ms[mode][0],
-            "plain_ms": blur_ms[mode][1],
-        })
+        kernels.append(entry(f"blur_groups_{mode}", "blur_groups.cu", f"blur_groups.py:{line}",
+                             launches[f"blur_groups_{mode}"], blur_err[mode], *blur_ms[mode], "blur_groups", None))
+    kernels.append(entry("xbr_epilogue", "xbr_epilogue.cu", "xbr_epilogue.py:58", launches["xbr_epilogue"], xb_err,
+                         xb_ms, xb_plain, "xbr_epilogue", None))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({

@@ -1,25 +1,27 @@
-"""Hand-written kernel-library entries: the crt-mattias pass.
+"""Hand-written kernel-library entries: the crt-mattias and xbr-lv2 passes.
 
-The port of the crt-mattias part of ``retrocapture_tpu/graph/kernels.py``.
-The generic evaluator lowers any GLSL; an entry here replaces one
-shader's whole fragment with a direct formulation (a CUDA blur kernel
-and a torch epilogue), selected by the shader's basename through
-``find_kernel``. An entry checks its own feasibility and returns None to
-leave the pass to the evaluator. ``RCTPU_KERNELS=off`` disables the
-library; otherwise an entry runs on either device, taking its kernels'
-plain versions on the CPU (the reference's interpret mode).
+The port of the crt-mattias and xbr-lv2 parts of
+``retrocapture_tpu/graph/kernels.py``. The generic evaluator lowers any
+GLSL; an entry here replaces one shader's whole fragment with a direct
+formulation (torch sections around a CUDA kernel), selected by the
+shader's basename through ``find_kernel``. An entry checks its own
+feasibility and returns None to leave the pass to the evaluator.
+``RCTPU_KERNELS=off`` disables the library; otherwise an entry runs on
+either device, taking its kernels' plain versions on the CPU (the
+reference's interpret mode).
 
 Numerics follow the reference as ``jax.jit`` compiles it: XLA's CPU
 code contracts ``a*b + c`` into one rounding where the tests
-(tests/test_torch_mattias.py) show it does, which ``fma32`` reproduces,
+(tests/test_torch_mattias.py, tests/test_torch_xbr.py) show it does,
+which ``fma32`` reproduces,
 and divides by a constant as a multiply by its reciprocal, taken in
 f32 (``f32(1) / f32(c)``, one ulp below ``f32(1/c)`` for c = 3.14). The
 hash's ``sin`` is taken in float64 and rounded once to f32, so that the
 CPU and CUDA runs of the port agree; XLA's own f32 ``sin`` is within an
 ulp of it.
 
-The xbr-lv2, ntsc 2-phase and nnedi3 entries of the reference are not
-ported yet (ROADMAP queue 1).
+The ntsc 2-phase and nnedi3 entries of the reference are not ported yet
+(ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -238,8 +240,263 @@ def _mattias_kernel(ctx, sh):
     return torch.cat([col, torch.ones((oh, ow, 1), dtype=torch.float32, device=dev)], dim=-1)
 
 
+# ---------------------------------------------------------------------------
+# xbr-lv2 (shaders_glsl/xbr/shaders/xbr-lv2.glsl): every NEAREST tap index
+# is an integer offset of the base source texel, so the tap and
+# edge-detection section runs at [output rows, source columns] and only the
+# fp-ramp blend is full resolution (the CUDA epilogue, ops/cuda/
+# xbr_epilogue.py). The reference's XLA tails (the one-hot matmul and the
+# RCTPU_XBR=dense|phase forms) exist for TPU gathers and are not ported:
+# the epilogue takes the 19 planes straight from the front section.
+
+_XBR_RGBW = np.array([14.352, 28.176, 5.472], np.float32)
+
+# (name, dx texels, dy texels) for the 21 neighbourhood taps.
+_XBR_TAPS = [
+    ("A1", -1, -2), ("B1", 0, -2), ("C1", 1, -2),
+    ("A", -1, -1), ("B", 0, -1), ("C", 1, -1),
+    ("D", -1, 0), ("E", 0, 0), ("F", 1, 0),
+    ("G", -1, 1), ("H", 0, 1), ("I", 1, 1),
+    ("G5", -1, 2), ("H5", 0, 2), ("I5", 1, 2),
+    ("A0", -2, -1), ("D0", -2, 0), ("G0", -2, 1),
+    ("C4", 2, -1), ("F4", 2, 0), ("I4", 2, 1),
+]
+_XBR_Y = np.array([0.2126, 0.7152, 0.0722], np.float32)
+
+
+def _xbr_axis_maps(ctx, ow: int, oh: int, w: int, h: int):
+    """Concrete replication of the evaluator's coordinate math from the
+    pass's rasterizer-exact varying planes (engine._plane_varyings): the
+    xbr tap coordinates are the t1..t7 varyings (TEX1..TEX7), each
+    plane-fit from its own float32 corner values, and the sampler floors
+    ``f32(f64(d)*j + f64(a0)) * f32(n)`` exactly like sample2d_affine. fp
+    mirrors the fragment's f32 data math ``fract(texCoord * TextureSize)``
+    on the TEX0 plane vectors. Returns (bx, fpx, tx, by, fpy, ty) or None
+    when the planes aren't available (vertex stage not corner-runnable,
+    renamed varyings), the quad is transformed, or a tap axis is not
+    separable."""
+    from retrocapture_tpu_torch.runtime.engine import _plane_varyings
+
+    cp = ctx.program.passes[ctx.i]
+    try:
+        planes, plane_cover = _plane_varyings(cp, ctx, ow, oh)
+    except Exception:
+        return None
+    if plane_cover is not None:
+        return None  # transformed quad: evaluator path handles coverage
+    need = {"TEX0": 2, "TEX1": 4, "TEX2": 4, "TEX3": 4, "TEX4": 4,
+            "TEX5": 4, "TEX6": 4, "TEX7": 4}
+    for nm, ncomp in need.items():
+        v = planes.get(nm)
+        if v is None or v.affine is None or len(v.affine) < ncomp:
+            return None
+
+    def aff(nm, comp):
+        return planes[nm].affine[comp]
+
+    def col_idx(a, n, m):
+        dadx, dady, a0 = a
+        if dady != 0.0:
+            return None
+        row = (np.float64(dadx) * np.arange(m, dtype=np.float64) + np.float64(a0)).astype(np.float32)
+        return np.floor(row * np.float32(n)).astype(np.int64)
+
+    def row_idx(a, n, m):
+        dadx, dady, a0 = a
+        if dadx != 0.0:
+            return None
+        col = (np.float64(dady) * np.arange(m, dtype=np.float64) + np.float64(a0)).astype(np.float32)
+        return np.floor(col * np.float32(n)).astype(np.int64)
+
+    # x taps: A0/D0/G0 column = t6.x (-2dx), t1.x/.y/.z = -dx,0,+dx,
+    # C4/F4/I4 column = t7.x (+2dx).
+    tx = {
+        -2: col_idx(aff("TEX6", 0), w, ow),
+        -1: col_idx(aff("TEX1", 0), w, ow),
+        0: col_idx(aff("TEX1", 1), w, ow),
+        1: col_idx(aff("TEX1", 2), w, ow),
+        2: col_idx(aff("TEX7", 0), w, ow),
+    }
+    ty = {
+        -2: row_idx(aff("TEX1", 3), h, oh),
+        -1: row_idx(aff("TEX2", 3), h, oh),
+        0: row_idx(aff("TEX3", 3), h, oh),
+        1: row_idx(aff("TEX4", 3), h, oh),
+        2: row_idx(aff("TEX5", 3), h, oh),
+    }
+    if any(v is None for v in tx.values()) or any(v is None for v in ty.values()):
+        return None
+
+    def fp_of(a, n, m):
+        dadx, dady, a0 = a
+        d = dadx if dady == 0.0 else dady
+        coord = (np.float64(d) * np.arange(m, dtype=np.float64) + np.float64(a0)).astype(np.float32)
+        prod = coord * np.float32(n)
+        return (prod - np.floor(prod)).astype(np.float32)
+
+    ax, ay = aff("TEX0", 0), aff("TEX0", 1)
+    if ax[1] != 0.0 or ay[0] != 0.0:
+        return None
+    fpx = fp_of(ax, w, ow)
+    fpy = fp_of(ay, h, oh)
+    return tx[0], fpx, tx, ty[0], fpy, ty
+
+
+def _xbr_lum(x, weights):
+    """dot(rgb, weights) over the last axis, as jitted XLA computes
+    ``x0*w0 + x1*w1 + x2*w2``: ``x1*w1`` rounded, then ``x0*w0`` and
+    ``x2*w2`` contracted into the running sum (tests/test_torch_xbr.py)."""
+    return fma32(x[..., 2], weights[2], fma32(x[..., 0], weights[0], x[..., 1] * float(weights[1])))
+
+
+def _xbr_planes(tex, ty, eq_thr, lv2_cf, small, y_weight, quantized: bool):
+    """The front section of xbr-lv2: ``tex [H, W, >=3]`` f32 (one frame),
+    ``ty`` the 5 row-index maps ``{-2..2: [OH]}`` of ``_xbr_axis_maps``
+    → ``S [19, OH, W]`` f32: the E, H, F, B, D colours x255 and the 4
+    packed flag codes (edri + 2 edr + 4 edr_left + 8 edr_up + 16 px per
+    corner). Each y tap row is an index gather (the reference's one-hot
+    einsum); x taps are column shifts of the edge-padded rows. The corner
+    "vec4"s ride as [4, OH, W] stacks; every pixel sees the reference's
+    operations in its order.
+
+    The colours ride x255 and the taps are those values x f32(1/255), as
+    in the reference. For a texture on the k/255 grid (``quantized``: the
+    u8 chain input, RGBA8 pass outputs) jitted XLA folds ``(k *
+    f32(1/255)) * 255`` into the level k, since f32(255 * f32(1/255)) =
+    1; the port rounds to the level there (tests/test_torch_xbr.py holds
+    S bit-equal to the reference's for u8 and f32 input)."""
+    h, w = tex.shape[0], tex.shape[1]
+    dev = tex.device
+    tex255 = tex[..., :3] * 255.0
+    if quantized:
+        tex255 = torch.round(tex255)
+    cols = torch.from_numpy(np.clip(np.arange(-2, w + 2), 0, w - 1)).to(dev)
+    rows = {k: torch.from_numpy(np.clip(ty[k], 0, h - 1)).to(dev) for k in (-2, -1, 0, 1, 2)}
+    pads = {k: tex255.index_select(0, r).index_select(1, cols) for k, r in rows.items()}  # [OH, W+4, 3]
+    taps = {k: p * float(_F(1.0 / 255.0)) for k, p in pads.items()}
+    lum = {k: _xbr_lum(t, _XBR_RGBW) for k, t in taps.items()}
+
+    def plane(maps, dx, dy):  # the (dx, dy) tap of a padded [OH, W+4, ...] map
+        return maps[dy][:, 2 + dx : 2 + dx + w]
+
+    L = {name: plane(lum, dx, dy) for name, dx, dy in _XBR_TAPS}
+    at = {name: (dx, dy) for name, dx, dy in _XBR_TAPS}
+
+    def v4(*names):
+        return torch.stack([L[n] for n in names])
+
+    b4 = v4("B", "D", "H", "F")
+    c4 = v4("C", "A", "G", "I")
+    d4 = v4("D", "H", "F", "B")
+    e4 = L["E"]
+    f4_ = v4("F", "B", "D", "H")
+    g4 = v4("G", "I", "C", "A")
+    h4 = v4("H", "F", "B", "D")
+    i4_ = v4("I", "C", "A", "G")
+    if small < 0.5:
+        i4 = v4("I4", "C1", "A0", "G5")
+        i5 = v4("I5", "C4", "A1", "G0")
+        h5 = v4("H5", "F4", "B1", "D0")
+    else:
+        yw = _XBR_Y * _F(y_weight)
+
+        def lum_y(*names):
+            return torch.stack([_xbr_lum(plane(taps, *at[n]), yw) for n in names])
+
+        i4 = lum_y("I4", "C1", "A0", "G5")
+        i5 = lum_y("I5", "C4", "A1", "G0")
+        h5 = lum_y("H5", "F4", "B1", "D0")
+    f44 = torch.zeros_like(i4)  # `vec4 f4` never assigned
+
+    def df(a, b):
+        return (a - b).abs()
+
+    def diff(a, b):
+        return (a != b).to(torch.float32)
+
+    def eq(a, b):
+        return ((a - b).abs() <= float(eq_thr)).to(torch.float32)
+
+    def neq(a, b):
+        return 1.0 - eq(a, b)
+
+    irlv0 = diff(e4, f4_) * diff(e4, h4)
+    # CORNER_C (the compiled-in variant, xbr-lv2.glsl:41,307-309)
+    irlv1 = irlv0 * (
+        neq(f4_, b4) * neq(f4_, c4)
+        + neq(h4, d4) * neq(h4, g4)
+        + eq(e4, i4_) * (neq(f4_, f44) * neq(f4_, i4) + neq(h4, h5) * neq(h4, i5))
+        + eq(e4, g4)
+        + eq(e4, c4)
+    )
+    irlv2l = diff(e4, g4) * diff(d4, g4)
+    irlv2u = diff(e4, c4) * diff(b4, c4)
+    if small < 0.5:
+        wd1 = df(e4, c4) + df(e4, g4) + df(i4_, h5) + df(i4_, f44) + 4.0 * df(h4, f4_)
+        wd2 = df(h4, d4) + df(h4, i5) + df(f4_, i4) + df(f4_, b4) + 4.0 * df(e4, i4_)
+    else:
+        wd1 = df(e4, c4) + df(e4, g4) + df(i4_, f44) + df(i4_, h5) + df(b4, d4) + df(i4, i5) + 2.0 * df(h4, f4_)
+        wd2 = df(h4, d4) + df(h4, i5) + df(f4_, b4) + df(f4_, i4) + df(g4, h5) + df(c4, f44) + 2.0 * df(e4, i4_)
+
+    edri = (wd2 >= wd1).to(torch.float32) * irlv0
+    edr = (wd2 >= wd1 + float(_F(0.1))).to(torch.float32) * (irlv1 >= 0.5).to(torch.float32)
+    cf = float(lv2_cf)
+    edr_l = (df(h4, c4) >= cf * df(f4_, g4)).to(torch.float32) * irlv2l * edr
+    edr_u = (df(f4_, g4) >= cf * df(h4, c4)).to(torch.float32) * irlv2u * edr
+    px = (df(e4, h4) >= df(e4, f4_)).to(torch.float32)
+    code = edri + 2.0 * edr + 4.0 * edr_l + 8.0 * edr_u + 16.0 * px  # [4, OH, W], integers 0..31
+
+    def x255(dx, dy):  # [3, OH, W] colour planes x255 of one tap
+        return plane(pads, dx, dy).permute(2, 0, 1)
+
+    return torch.cat([x255(0, 0), x255(0, 1), x255(1, 0), x255(0, -1), x255(-1, 0), code])
+
+
+def _xbr_lv2_kernel(ctx, sh):
+    """xbr-lv2.glsl on the kernel library: the front section (torch, at
+    [output rows, source columns]) and the epilogue (the CUDA kernel on
+    the card). Returns None when infeasible."""
+    from retrocapture_tpu_torch.ops.cuda import xbr_epilogue as xe
+
+    cfg = ctx.program.preset.passes[ctx.i]
+    if cfg.filter_linear or cfg.wrap_mode != "clamp_to_edge":
+        return None
+    params = ctx.params
+
+    def p(name, default):
+        v = params.get(name, _F(default))
+        if not isinstance(v, (int, float, np.generic)):
+            return None  # a tensor parameter: leave the pass to the evaluator
+        return _F(v)
+
+    eq_thr = p("XBR_EQ_THRESHOLD", 15.0)
+    lv2_cf = p("XBR_LV2_COEFFICIENT", 2.0)
+    small = p("small_details", 0.0)
+    y_weight = p("XBR_Y_WEIGHT", 48.0)
+    if None in (eq_thr, lv2_cf, small, y_weight):
+        return None
+
+    tex = ctx.input_binding.tex
+    h, w = int(tex.shape[0]), int(tex.shape[1])
+    ow, oh = ctx.out_size
+    maps = _xbr_axis_maps(ctx, ow, oh, w, h)
+    if maps is None:
+        return None
+    bx, fpx, tx, _, fpy, ty = maps
+    # x-exactness gate: every x-tap's f32-floored index must equal
+    # clamp(base + k) everywhere (true whenever ow/w is an integer ratio),
+    # so x offsets factor to source-column shifts. Each y offset has its
+    # own exact row gather, so the y axis needs no such property.
+    for k, arr in tx.items():
+        if not np.array_equal(np.clip(arr, 0, w - 1), np.clip(bx + k, 0, w - 1)):
+            return None
+    S = _xbr_planes(tex, ty, eq_thr, lv2_cf, small, y_weight, ctx.input_binding.quantized)
+    return xe.xbr_epilogue(S[None], np.clip(bx, 0, w - 1).astype(np.int32), fpx, fpy)[0]
+
+
 _REGISTRY = {
     "crt-mattias.glsl": _mattias_kernel,
+    "xbr-lv2.glsl": _xbr_lv2_kernel,
 }
 
 

@@ -38,6 +38,7 @@ KERNELS = {
     "warp_sample": ("warp_sample_launch", [_P] * 4 + [_I] * 7 + [_P]),
     "blur_groups": ("blur_groups_launch", [_P] * 6 + [_I] * 7 + [_P]),
     "resample_xphase": ("resample_xphase_launch", [_P, _P] + [_P] * 7 + [_I] * 6 + [_P]),
+    "xbr_epilogue": ("xbr_epilogue_launch", [_P] * 6 + [_I] * 4 + [_P]),
 }
 
 NVCC_FLAGS = [

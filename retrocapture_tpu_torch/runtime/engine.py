@@ -20,8 +20,10 @@ Execution model:
 * The viewport blit is stateless and runs once per batch, batched, after
   the chain (the CUDA blit kernel for ``output="u8"``).
 
-The device is always named by the caller (``Engine(device=...)``);
-frames given as numpy arrays are uploaded there.
+The engine runs on the card (``device="cuda"``, the default) unless the
+caller names another device, and raises rather than fall back to the CPU
+when there is no card; frames given as numpy arrays are uploaded to its
+device.
 """
 
 from __future__ import annotations
@@ -90,10 +92,13 @@ def chain_state_from_numpy(history, feedback, frame_count, time, device) -> _Cha
 class Engine:
     """load preset → set parameters → process frames."""
 
-    def __init__(self, viewport: Optional[tuple[int, int]] = None, *, device):
+    def __init__(self, viewport: Optional[tuple[int, int]] = None, *, device="cuda"):
         dev = torch.device(device)
-        if dev.type == "cuda" and dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
+        if dev.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError("Engine: CUDA is not available; pass device='cpu' to run on the CPU")
+            if dev.index is None:
+                dev = torch.device("cuda", torch.cuda.current_device())
         self.device = dev
         self._program: Optional[PresetProgram] = None
         self._preset: Optional[Preset] = None
@@ -585,7 +590,7 @@ def _run_chain_impl(
 
 def _run_pass(cp, ctx: PassContext, sh: PassShapes):
     """One pass → [oh, ow, 4] color. A shader with a kernel-library entry
-    (graph/kernels.py: crt-mattias) takes that path when the entry finds
+    (graph/kernels.py: crt-mattias, xbr-lv2) takes that path when the entry finds
     the pass feasible; the evaluator is the general path and the
     semantic reference (the reference's engine.py:1196-1216; its
     phase-factored evaluation is not ported yet)."""

@@ -15,10 +15,12 @@ import torch
 
 import retrocapture_tpu_torch as torch_pkg
 from _mattias_standin import write_standin
+from _xbr_standin import write_standin as write_xbr_standin
 from retrocapture_tpu_torch.graph.kernels import mattias_groups, mattias_uv
 from retrocapture_tpu_torch.ops.cuda import blur_groups as bg
 from retrocapture_tpu_torch.ops.cuda import resample as rs
 from retrocapture_tpu_torch.ops.cuda import warp_sample as ws
+from retrocapture_tpu_torch.ops.cuda import xbr_epilogue as xe
 from retrocapture_tpu_torch.ops.sampling import WRAP_MODES, _axis_matrix
 
 pytestmark = pytest.mark.cuda
@@ -124,6 +126,61 @@ def test_xphase_kernel_equals_dense_kernel(cuda_device, w, ow, h, oh):
     assert torch.equal(got, rs.resample_u8(t, ay, ax))
     ytaps = None if ay is None else tuple(torch.from_numpy(x).to(cuda_device) for x in rs.axis_taps(ay))
     assert torch.equal(got, rs.resample_u8_xphase_plain(t, ytaps, plan))
+
+
+def _xbr_inputs(b, w, ow, oh, seed):
+    rng = np.random.default_rng(seed)
+    S = np.concatenate(
+        [rng.integers(0, 256, (b, 15, oh, w)), rng.integers(0, 32, (b, 4, oh, w))], axis=1
+    ).astype(np.float32)
+    bx = np.clip(((np.arange(ow) + 0.5) * w / ow).astype(np.int32), 0, w - 1)
+    fpx = ((np.arange(ow) + 0.5) / ow * w % 1.0).astype(np.float32)
+    fpy = rng.random(oh).astype(np.float32)
+    return torch.from_numpy(S), bx, fpx, fpy
+
+
+@pytest.mark.parametrize("w,ow,oh", [(320, 1920, 1080), (64, 128, 48), (40, 120, 30), (64, 250, 144), (80, 480, 270)])
+def test_xbr_epilogue_kernel_equals_plain(cuda_device, w, ow, oh):
+    S, bx, fpx, fpy = _xbr_inputs(2, w, ow, oh, w + ow)
+    before = xe.LAUNCHES
+    got = xe.xbr_epilogue(S.to(cuda_device), bx, fpx, fpy)
+    assert xe.LAUNCHES == before + 1
+    want = xe.xbr_epilogue_plain(
+        S.to(cuda_device), *(torch.from_numpy(a).to(cuda_device) for a in (bx, fpx, fpy))
+    )
+    assert got.shape == (2, oh, ow, 4) and torch.equal(got, want)
+    assert torch.equal(got.cpu(), xe.xbr_epilogue(S, bx, fpx, fpy))
+
+
+def test_xbr_epilogue_wrapper_raises(cuda_device):
+    S, bx, fpx, fpy = _xbr_inputs(1, 16, 32, 8, 0)
+    S = S.to(cuda_device)
+    before = xe.LAUNCHES
+    with pytest.raises(TypeError):
+        xe.xbr_epilogue(S.double(), bx, fpx, fpy)
+    with pytest.raises(ValueError):
+        xe.xbr_epilogue(S[:, :18], bx, fpx, fpy)
+    with pytest.raises(ValueError):
+        xe.xbr_epilogue(S, bx, fpx, fpy[:4])
+    with pytest.raises(ValueError):
+        xe.xbr_epilogue(S, bx + 16, fpx, fpy)
+    with pytest.raises(RuntimeError):
+        xe.xbr_epilogue(S.to("meta"), bx, fpx, fpy)
+    assert xe.LAUNCHES == before
+
+
+def test_xbr_slice_cuda_matches_cpu(cuda_device, tmp_path):
+    path = write_xbr_standin(str(tmp_path))
+    frames = np.random.default_rng(4).integers(0, 256, (2, 60, 80, 3), dtype=np.uint8)
+    outs = []
+    for dev in (cuda_device, "cpu"):
+        e = torch_pkg.Engine(viewport=(480, 270), device=dev)
+        assert e.load_preset(path), e.last_error
+        before = xe.LAUNCHES
+        outs.append(e.apply(torch.from_numpy(frames).to(dev), output="u8").cpu())
+        assert e.shader_active is True and e.last_error is None
+        assert xe.LAUNCHES == before + (2 if dev != "cpu" else 0)
+    assert torch.equal(outs[0], outs[1])
 
 
 def test_mattias_slice_cuda_matches_cpu(cuda_device, tmp_path):

@@ -426,7 +426,7 @@ def test_kernels_off_leaves_the_pass_to_the_evaluator(standin, monkeypatch):
     np.testing.assert_array_equal(got, frames[:, ys][:, :, xs])
     monkeypatch.setenv("RCTPU_KERNELS", "on")
     assert tk.find_kernel("/some/dir/crt-mattias.glsl") is not None
-    assert tk.find_kernel("xbr-lv2.glsl") is None
+    assert tk.find_kernel("ntsc-pass2-2phase.glsl") is None
 
 
 def test_out_of_gate_geometry_falls_to_the_evaluator(standin, monkeypatch):

@@ -59,7 +59,16 @@ COPIED_DEFS = [
     ),
     ("ops/pallas/resample.py", "ops/cuda/resample.py", ["_xphase_plan"]),
     ("ops/pallas/preconv_blur.py", "ops/preconv_blur.py", ["_PAD", "_AxisPlan", "GroupPlan", "plan_group"]),
-    ("graph/kernels.py", "graph/kernels.py", ["_MATTIAS_W", "_mattias_max_dudv", "_MATTIAS_GROUPS"]),
+    (
+        "graph/kernels.py",
+        "graph/kernels.py",
+        ["_MATTIAS_W", "_mattias_max_dudv", "_MATTIAS_GROUPS", "_XBR_RGBW", "_XBR_TAPS"],
+    ),
+    (
+        "ops/pallas/xbr_epilogue.py",
+        "ops/cuda/xbr_epilogue.py",
+        ["_AO", "_BO", "_CO", "_AX", "_BX", "_CX", "_AY", "_BY", "_CY", "_D4", "_DL", "_DU"],
+    ),
 ]
 
 
