@@ -10,9 +10,11 @@ its plain torch version on the card, drives the main path
 feedback-ghost-nv12 slice, a warped curvature pass, the crt-mattias hand
 kernel (default blur, ``RCTPU_BLUR=v1`` and ``RCTPU_MATTIAS=preconv``),
 feedback-ghost under ``RCTPU_XPHASE=on`` and the xbr-lv2 hand kernel,
-compares them with the port's own CPU run, and times the kernels (device
-time per launch from CUDA events around it, and per call through the
-wrapper) against their plain versions (device time from torch.profiler),
+compares them with the port's own CPU run, counts the blur kernel's
+tiles that left shared memory for global (none may at crt-mattias's
+geometry), and times the kernels (device time per launch from CUDA events
+around it, and per call through the wrapper) against their plain versions
+(device time from torch.profiler),
 one PyTorch library call computing the same function where there is one,
 and their bound on the card; and the slices. Prints one line per phase,
 the kernel table as a JSON line, and as its last line ``{"ok": true,
@@ -482,8 +484,11 @@ def phase_blur(gen):
     groups = mattias_groups(vw, vh)
     errs = {}
     for mode in ("v2", "v1"):
+        bg.wide_tiles(reset=True)
         with env(RCTPU_BLUR=mode):
             got = bg.blur5x5_groups(tex, u, v, groups)
+        wide = bg.wide_tiles(reset=True)
+        check(wide == 0, f"blur {mode}: {wide} tiles took the wide path at the crt-mattias geometry")
         plain = bg.blur5x5_groups_plain(tex, u, v, groups, bg.weight_tables(groups, mode))
         torch.cuda.synchronize()
         err = 0.0
@@ -495,7 +500,7 @@ def phase_blur(gen):
                   f"(max |d| {err:.3e})")
         errs[mode] = err
         say("9", f"blur5x5_groups {mode} [{MATTIAS_BATCH},{h},{w},3] -> {vh}x{vw} x 9 groups: ok "
-            f"(bit-equal to plain)")
+            f"(bit-equal to plain, wide tiles {wide})")
         del got, plain
     return errs, (tex, u, v, groups)
 
@@ -611,6 +616,7 @@ def phase_mattias(gen, Engine, tmp):
     h, w = SRC_HW
     frames = torch.randint(0, 256, (MATTIAS_BATCH, h, w, 3), generator=gen, device=DEV, dtype=torch.uint8)
     e = _mattias_engine(Engine, path)
+    bg.wide_tiles(reset=True)
     bg.LAUNCHES = rs.LAUNCHES = rs.XPHASE_LAUNCHES = ws.LAUNCHES = 0
     for i in range(3):
         out = e.apply(frames, output="u8")
@@ -619,8 +625,10 @@ def phase_mattias(gen, Engine, tmp):
         check(tuple(out.shape) == (MATTIAS_BATCH, VIEWPORT[1], VIEWPORT[0], 3), f"mattias shape {tuple(out.shape)}")
         check(out.dtype == torch.uint8 and out.device.type == torch.device(DEV).type, f"mattias dtype {out.dtype} on {out.device}")
     launches = {"blur_groups_v2": bg.LAUNCHES}
+    wide = bg.wide_tiles(reset=True)
     check(launches["blur_groups_v2"] == 3 * MATTIAS_BATCH, f"mattias: blur kernel launches {bg.LAUNCHES}, "
           f"want {3 * MATTIAS_BATCH}")
+    check(wide == 0, f"mattias: {wide} blur tiles took the wide path")
     check(int(out[:, 0, 0].max()) == 0 and float(out[:, VIEWPORT[1] // 2].float().mean()) > 5,
           "mattias: no curved black corner or no lit centre")
     outs = []
@@ -630,7 +638,8 @@ def phase_mattias(gen, Engine, tmp):
         _engine_ok(e2, f"mattias {dev} reference run")
     dmax, frac = _cmp_u8(outs[0], outs[1], "mattias cuda vs cpu")
     say("10", f"crt-mattias {MATTIAS_BATCH}x{h}x{w} rgb -> {VIEWPORT[1]}x{VIEWPORT[0]} u8, 3 applies: ok "
-        f"(blur launches {launches['blur_groups_v2']}; cuda vs cpu on 2 frames: max {dmax} step, {frac:.2e} of values)")
+        f"(blur launches {launches['blur_groups_v2']}, wide tiles {wide}; cuda vs cpu on 2 frames: max {dmax} step, "
+        f"{frac:.2e} of values)")
     base = outs[0]
 
     with env(RCTPU_BLUR="v1"):
@@ -934,20 +943,30 @@ def main() -> int:
             10, device_ms, kernel_timer=launch_timer("resample_xphase"),
         )
         say("12", f"resample_u8_xphase [{SLICE_BATCH},{h},{w},3] -> [{SLICE_BATCH},{VIEWPORT[1]},{VIEWPORT[0]},3]: "
-            f"device time kernel "
-            f"{xp_ms:.3f} ms, plain {xp_plain:.3f} ms  ({card})")
+            f"device time kernel {xp_ms:.3f} ms, plain {xp_plain:.3f} ms; the resample_u8 kernel on the same "
+            f"shape {rs_ms:.3f} ms (phase 7)  ({card})")
+        # blur_groups at the main path's own shape (one frame a launch, as
+        # the engine calls it) and at batch 32 in one launch.
+        btex1 = btex[:1]
         blur_ms = {}
         for mode in ("v2", "v1"):
             tables = bg.weight_tables(bgroups, mode)
             with env(RCTPU_BLUR=mode):
                 plain_ms, k_ms = in_turns(
+                    lambda: bg.blur5x5_groups_plain(btex1, bu, bv, bgroups, tables),
+                    lambda: bg.blur5x5_groups(btex1, bu, bv, bgroups),
+                    100, device_ms, kernel_timer=launch_timer("blur_groups"), plain_iters=4,
+                )
+                plain32_ms, k32_ms = in_turns(
                     lambda: bg.blur5x5_groups_plain(btex, bu, bv, bgroups, tables),
                     lambda: bg.blur5x5_groups(btex, bu, bv, bgroups),
                     20, device_ms, kernel_timer=launch_timer("blur_groups"), plain_iters=2,
                 )
             blur_ms[mode] = (k_ms, plain_ms)
-            say("12", f"blur5x5_groups {mode} [{MATTIAS_BATCH},{h},{w},3] -> [{MATTIAS_BATCH},{VIEWPORT[1]},{VIEWPORT[0]}] x 3 "
-                f"channels: device time kernel {k_ms:.3f} ms, plain {plain_ms:.3f} ms  ({card})")
+            say("12", f"blur5x5_groups {mode} [1,{h},{w},3] -> [1,{VIEWPORT[1]},{VIEWPORT[0]}] x 3 channels (one "
+                f"frame a launch, as the engine calls it): device time kernel {k_ms:.4f} ms, plain {plain_ms:.3f} ms; "
+                f"[{MATTIAS_BATCH},{h},{w},3] in one launch: kernel {k32_ms:.3f} ms ({k32_ms / MATTIAS_BATCH:.4f} a "
+                f"frame), plain {plain32_ms:.3f} ms  ({card})")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(2):
@@ -1026,7 +1045,8 @@ def main() -> int:
         "resample_u8": blit_bound(tex, vh, vw),
         "resample_xphase": blit_bound(tex, vh, vw),
         "warp_sample": bound(nbytes(wtex, wu0, wv0) + px * 4 * 4, 40 * px),  # coords + 4 taps x 4 channels
-        "blur_groups": bound(nbytes(btex, bu, bv) + 3 * MATTIAS_BATCH * px * 4, 2 * 25 * len(bgroups) * MATTIAS_BATCH * px),
+        # One frame, the shape of each of the main path's launches.
+        "blur_groups": bound(nbytes(btex1, bu, bv) + 3 * px * 4, 2 * 25 * len(bgroups) * px),
         # 253 f32 operations per pixel: 15 colour scales, 4 corners x 35
         # (4 ramps of 7, 4 flag products, 3 max), 72 for the mixes, 17 for
         # c_df and the select, 9 for the last mix.

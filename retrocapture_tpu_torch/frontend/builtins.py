@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from retrocapture_tpu_torch.frontend import tnp
+from retrocapture_tpu_torch.policy import fma32
 from retrocapture_tpu_torch.frontend.values import (
     BOOL,
     FLOAT,
@@ -138,11 +139,16 @@ def apply_binary(op: str, a: V, b: V) -> V:
     else:
         aff = None
     dep = None if t.is_matrix else union_deps((a, b), max(t.ncomp, 1))
-    if op == "+":
-        return V(aa.data + bb.data, t, affine=aff, deps=dep)
-    if op == "-":
-        return V(aa.data - bb.data, t, affine=aff, deps=dep)
+    xla_f32 = t.base == "float" and not t.is_matrix and xp is not np
+    if op in ("+", "-"):
+        if xla_f32:
+            fused = _contract(op, aa, bb)
+            if fused is not None:
+                return V(fused, t, affine=aff, deps=dep)
+        return V(aa.data + bb.data if op == "+" else aa.data - bb.data, t, affine=aff, deps=dep)
     if op == "*":
+        if xla_f32:
+            return _product(a, b, aa, bb, t, aff, dep)
         return V(aa.data * bb.data, t, affine=aff, deps=dep)
     if op == "/":
         if t.base in ("int", "uint"):
@@ -164,6 +170,46 @@ def apply_binary(op: str, a: V, b: V) -> V:
     if op == ">>":
         return V(aa.data >> bb.data, t, deps=dep)
     raise GlslEvalError(f"unknown binary op {op!r}")
+
+
+def _scalar_const(v: V):
+    """``v`` as an ``np.float32`` when it is a batch-less concrete scalar
+    (a literal or a parameter: a constant in the reference's HLO)."""
+    if v.type.is_scalar and is_concrete(v.data) and v.batch_shape == () and v.type.base != "bool":
+        return np.float32(v.data)
+    return None
+
+
+def _product(a: V, b: V, aa: V, bb: V, t: GType, aff, dep) -> V:
+    """A float tensor product, marked as one (``V.prod``). A scalar
+    constant times a product with a constant factor folds into that
+    factor, as XLA's algebraic simplifier rewrites ``(x * c1) * c2`` into
+    ``x * f32(c1 * c2)`` (the u8 scale of a re-quantised tap folds into a
+    shader weight so)."""
+    for x, y in ((a, b), (b, a)):
+        c2 = _scalar_const(y)
+        if c2 is not None and x.prod is not None and isinstance(x.prod[1], np.float32):
+            f, c1, fusable = x.prod
+            c = np.float32(c1 * c2)
+            return V(f * float(c), t, affine=aff, deps=dep, prod=(f, c, fusable))
+    ca, cb = _scalar_const(a), _scalar_const(b)
+    prod = (bb.data, ca, True) if ca is not None else (aa.data, cb, True) if cb is not None else (aa.data, bb.data, True)
+    return V(aa.data * bb.data, t, affine=aff, deps=dep, prod=prod)
+
+
+def _contract(op: str, a: V, b: V):
+    """``a + b`` / ``a - b`` with a fusable product operand rounded once,
+    as XLA's CPU code generator (LLVM) contracts an f32 add or subtract
+    inside a fusion: where both operands are products the left one is
+    fused and the right one rounded first; where one is, that one. None
+    when neither operand is a fusable product."""
+    pa = a.prod if a.prod is not None and a.prod[2] else None
+    pb = b.prod if b.prod is not None and b.prod[2] else None
+    if pa is not None:
+        return fma32(pa[0], pa[1], b.data if op == "+" else -b.data)
+    if pb is not None:
+        return fma32(-pb[0] if op == "-" else pb[0], pb[1], a.data)
+    return None
 
 
 def apply_unary(op: str, a: V) -> V:
@@ -352,7 +398,15 @@ def _b_mix(x: V, y: V, a: V) -> V:
             t.with_base("float"),
             deps=union_deps((x, y, a), max(t.ncomp, 1)),
         )
-    return _cw(lambda xp, xd, yd, ad: xd + (yd - xd) * ad, x, y, a, result_base="float")
+    return _cw(_mix, x, y, a, result_base="float")
+
+
+def _mix(xp, x, y, a):
+    """``x + (y - x) * a``; on tensors with the product contracted into
+    the add, as the reference's jitted fusion computes it."""
+    if xp is np:
+        return x + (y - x) * a
+    return fma32(y - x, a, x)
 
 
 def _b_clamp(x: V, lo: V, hi: V) -> V:

@@ -1366,7 +1366,7 @@ class ShaderEval:
 
     # -- textures -------------------------------------------------------
     def _eval_texture(self, name: str, raw_args: list[A.Expr]):
-        from retrocapture_tpu_torch.ops.sampling import sample2d, sample2d_affine
+        from retrocapture_tpu_torch.ops.sampling import sample2d_affine
 
         args = [self.eval(a) for a in raw_args]
         sampler = args[0]
@@ -1448,14 +1448,7 @@ class ShaderEval:
                     # from the data — sample2d's separable detection
                     # recovers the same lowering.
                     d = np.asarray(uv.data, np.float32)
-                    out = sample2d(
-                        sampler.tex,
-                        d[..., 0],
-                        d[..., 1],
-                        filter_linear=sampler.filter_linear,
-                        wrap_mode=sampler.wrap_mode,
-                    )
-                    return V(out, GType("float", (4,)))
+                    return self._quantized_tap(sampler, d[..., 0], d[..., 1])
                 out = sample2d_affine(
                     sampler.tex,
                     aff[0],
@@ -1517,15 +1510,26 @@ class ShaderEval:
         d = uv.data
         if is_concrete(d):
             d = np.asarray(d, np.float32)
-        u, v = d[..., 0], d[..., 1]
-        out = sample2d(
-            sampler.tex,
-            u,
-            v,
-            filter_linear=sampler.filter_linear,
-            wrap_mode=sampler.wrap_mode,
+        return self._quantized_tap(sampler, d[..., 0], d[..., 1])
+
+    @staticmethod
+    def _quantized_tap(sampler: SamplerVal, u, v) -> V:
+        """``sample2d`` on the paths where the reference passes the
+        sampler's ``quantized`` flag. Where it re-materialises the tap
+        through uint8, its HLO holds ``convert(k) * f32(1/255)`` for the
+        u8 code ``k``: a product with a constant factor that later
+        scalar constants fold into (builtins._product). Its saturating
+        u8 convert puts a select between that multiply and any add, so
+        the product is never contracted (``fusable`` False)."""
+        from retrocapture_tpu_torch.ops.sampling import sample2d_requant
+
+        out, requant = sample2d_requant(
+            sampler.tex, u, v, filter_linear=sampler.filter_linear, wrap_mode=sampler.wrap_mode
         )
-        return V(out, GType("float", (4,)))
+        prod = None
+        if requant and sampler.quantized:
+            prod = (torch.round(out * 255.0), np.float32(1.0 / 255.0), False)
+        return V(out, GType("float", (4,)), prod=prod)
 
     def _eval_derivative(self, name: str, raw_args: list[A.Expr]):
         v = self.eval(raw_args[0]).astype("float")

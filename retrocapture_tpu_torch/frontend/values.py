@@ -235,17 +235,26 @@ class V:
     prove a *tensor* grid is still separable (u varies only along x, v
     only along y) and lower to two on-device resampling matmuls instead
     of the far costlier 2-D warp path. ``None`` means unknown (assume
-    both axes)."""
+    both axes).
 
-    __slots__ = ("data", "type", "affine", "deps")
+    ``prod`` marks a float tensor that is one f32 product, as the
+    reference's jitted XLA sees it: ``(x, y, fusable)`` with ``data ==
+    f32(x * y)``, ``y`` an ``np.float32`` when it is a scalar constant.
+    XLA folds a scalar constant into such a constant factor (``(x * c1)
+    * c2 -> x * f32(c1 * c2)``), and its CPU code generator contracts a
+    ``fusable`` product into the add or subtract that consumes it
+    (builtins.apply_binary). Ops that do not keep the product drop it."""
 
-    def __init__(self, data, type: GType, affine=None, deps=None):
+    __slots__ = ("data", "type", "affine", "deps", "prod")
+
+    def __init__(self, data, type: GType, affine=None, deps=None, prod=None):
         self.data = data
         self.type = type
         self.affine = affine
         if deps is None and affine is not None:
             deps = tuple(_deps_from_affine(t) for t in affine)
         self.deps = deps
+        self.prod = prod
 
     # -- shape helpers --------------------------------------------------
     @property
@@ -289,7 +298,13 @@ class V:
             dep = deps_of(self, 1)
             if dep is not None:
                 dep = tuple(dep[0] for _ in range(type_shape[0]))
-        return V(d, GType(self.type.base, type_shape), affine=aff, deps=dep)
+        prod = None
+        if self.prod is not None:
+            # A broadcast product is still the product in each element.
+            x, y, fusable = self.prod
+            grow = (...,) + (None,) * len(type_shape)
+            prod = tuple(f[grow] if isinstance(f, torch.Tensor) else f for f in (x, y)) + (fusable,)
+        return V(d, GType(self.type.base, type_shape), affine=aff, deps=dep, prod=prod)
 
     def component(self, i: int) -> "V":
         if self.type.is_scalar:

@@ -11,11 +11,14 @@ pixel; every group contributes, to its output channel,
     col_i = clamp(floor(((u + bx) + xo_i) * W), 0, W-1)   (rows likewise)
 
 with the evaluator's f32 op order for the tap indices. The TPU kernels
-rebuild that gather from VMEM bands, lane rotations and one-hot masks;
-Hopper gathers through L1, so the kernel (``csrc/blur_groups.cu``) is the
-sum itself, one thread per output pixel, and v1 and v2 differ only in
-the 5x5 weight table the host builds. The plain version runs the same
-loop with torch gathers in the same order, so the two agree bit for bit.
+rebuild that gather from VMEM bands, lane rotations and one-hot masks.
+The kernel (``csrc/blur_groups.cu``) gathers each 64 x 16 output tile's
+source footprint into shared memory and sums there, 4 pixels a thread,
+with the group table in shared memory; a tile whose footprint does not
+fit (a wild warp, non-finite coordinates) sums from global memory in the
+same kernel and counts in ``wide_tiles``. v1 and v2 differ only in the
+5x5 weight table the host builds. The plain version runs the same loop
+with torch gathers in the same order, so the two agree bit for bit.
 
 The numpy plan helpers (``BlurGroup``, ``_rank2``, ``_static_plan``,
 ``_static_plan_v2``) are copied from the reference, so that
@@ -43,9 +46,12 @@ __all__ = [
     "weight_tables",
     "BlurGroup",
     "LAUNCHES",
+    "wide_tiles",
 ]
 
 LAUNCHES = 0
+# device -> int32 [1]: the tiles the kernel summed from global memory.
+_WIDE: dict = {}
 
 TX = 128  # output pixels per tile row (lane dim; take_along_axis is
 # single-vreg along the gather dim, so TX cannot exceed 128)
@@ -293,15 +299,33 @@ def _launch(t4, u, v, groups, tables):
         raise ValueError(f"blur5x5_groups: the kernel writes at most 4 channels, got {len(chans)}")
     out = torch.empty((len(chans), b, ho, wo), dtype=torch.float32, device=dev)
     if out.numel():
+        if c > 4:
+            raise ValueError(f"blur5x5_groups: the kernel takes at most 4 texture channels, got {c}")
+        wide = _WIDE.get(dev)
+        if wide is None:
+            wide = _WIDE[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
         rc = load("blur_groups")(
             t4.data_ptr(), uu.data_ptr(), vv.data_ptr(), params.data_ptr(), chan.data_ptr(), out.data_ptr(),
-            b, h, w, c, ho * wo, len(groups), len(chans),
+            wide.data_ptr(), b, h, w, c, ho, wo, len(groups), len(chans),
             torch.cuda.current_stream(dev).cuda_stream,
         )
         if rc != 0:
             raise RuntimeError(f"blur_groups kernel launch failed: cudaError {rc}")
         LAUNCHES += 1
     return {ch: out[k] for k, ch in enumerate(chans)}
+
+
+def wide_tiles(reset: bool = False) -> int:
+    """The 64 x 16 output tiles (one frame each) that the kernel has summed
+    from global memory since the last reset, over every card: tiles whose
+    source footprint does not fit its shared-memory budget or that hold a
+    non-finite or huge coordinate. Reads the counters (a synchronising
+    copy); ``reset`` zeroes them."""
+    n = sum(int(t.item()) for t in _WIDE.values())
+    if reset:
+        for t in _WIDE.values():
+            t.zero_()
+    return n
 
 
 def blur5x5_groups(tex, u, v, groups):

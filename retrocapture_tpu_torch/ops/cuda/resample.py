@@ -232,6 +232,8 @@ def _launch_xphase(t4, ytaps, plan):
     global XPHASE_LAUNCHES
     r, d, w0, w1 = plan
     b, h, w, c = t4.shape
+    if not 1 <= c <= 4:
+        raise ValueError(f"resample_u8_xphase: the kernel takes 1 to 4 channels, got {c}")
     dev = t4.device
     oh = h if ytaps is None else ytaps[0].shape[0]
     out = torch.empty((b, oh, r * w, c), dtype=torch.uint8, device=dev)

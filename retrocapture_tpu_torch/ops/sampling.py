@@ -29,13 +29,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from retrocapture_tpu_torch.policy import ifloor32, to_device
+from retrocapture_tpu_torch.policy import fma32, ifloor32, to_device
 
 __all__ = [
     "sample2d",
     "sample2d_affine",
     "sample2d_separable",
     "sample2d_gather",
+    "sample2d_requant",
     "WRAP_MODES",
 ]
 
@@ -250,12 +251,21 @@ def _slice_axis_take(src, taps, m, axis, filter_linear, wrap):
         t1 = _axis_take(src, _pattern_index(p1, m), axis, wrap)
         mk = torch.from_numpy(np.asarray(w0 == 1.0).reshape(shape)).to(src.device)
         return torch.where(mk, t0, t1)
-    acc = None
+    taken = []
     for pat, wv in taps:
         t = _axis_take(src, _pattern_index(pat, m), axis, wrap)
-        if wv is not None:
-            t = t * to_device(np.asarray(wv, np.float32).reshape(shape), src.device)
-        acc = t if acc is None else acc + t
+        taken.append((t, None if wv is None else to_device(np.asarray(wv, np.float32).reshape(shape), src.device)))
+    if len(taken) == 1:
+        t, wt = taken[0]
+        return t if wt is None else t * wt
+    # Weighted LINEAR taps, summed as the reference's jitted fusion
+    # computes them: XLA's CPU code generator contracts the first add's
+    # left product and rounds its right one, then contracts each further
+    # product into the running sum (frontend/builtins._contract).
+    (t0, w0), (t1, w1) = taken[:2]
+    acc = fma32(t0, w0, t1 * w1)
+    for t, wt in taken[2:]:
+        acc = fma32(t, wt, acc)
     return acc
 
 
@@ -492,6 +502,16 @@ def sample2d(
     every non-warping shader and all scale/blit resampling) lower to
     per-axis selects or two matmuls. Warped 2-D grids on a CUDA texture
     go to the warp kernel; on the CPU they take the plain gather."""
+    return sample2d_requant(tex, u, v, filter_linear=filter_linear, wrap_mode=wrap_mode)[0]
+
+
+def sample2d_requant(tex, u, v, *, filter_linear: bool, wrap_mode: str = "clamp_to_edge"):
+    """``(sample2d(...), requant)``: ``requant`` is True where the
+    reference re-materialises a sample of an RGBA8-quantized texture
+    through uint8 (its ``sampling._requant_u8``): a NEAREST tap of a
+    concrete separable grid that takes the one-hot matmuls. The values
+    are the same; what differs is the HLO the reference's shader
+    arithmetic meets (frontend/interp.py)."""
     if wrap_mode not in WRAP_MODES:
         wrap_mode = "clamp_to_edge"
     h, w, _ = tex.shape
@@ -502,14 +522,14 @@ def sample2d(
             if not filter_linear:
                 out = _nearest_stride_slice(tex, u_row, v_col, wrap_mode)
                 if out is not None:
-                    return out
+                    return out, False
             out = _separable_slices(tex, u_row, v_col, filter_linear, wrap_mode)
             if out is not None:
-                return out.to(tex.dtype)
+                return out.to(tex.dtype), False
             ax = _axis_matrix_device(u_row, w, filter_linear, wrap_mode, tex.device)
             ay = _axis_matrix_device(v_col, h, filter_linear, wrap_mode, tex.device)
             th = torch.einsum("hs,swc->hwc", ay, tex)
-            return torch.einsum("ws,hsc->hwc", ax, th).to(tex.dtype)
+            return torch.einsum("ws,hsc->hwc", ax, th).to(tex.dtype), not filter_linear
 
     u = to_device(u, tex.device).to(torch.float32)
     v = to_device(v, tex.device).to(torch.float32)
@@ -518,5 +538,5 @@ def sample2d(
         # the CPU).
         from retrocapture_tpu_torch.ops.cuda.warp_sample import warp_sample
 
-        return warp_sample(tex, u, v, filter_linear=filter_linear, wrap_mode=wrap_mode)
-    return sample2d_gather(tex, u, v, filter_linear=filter_linear, wrap_mode=wrap_mode)
+        return warp_sample(tex, u, v, filter_linear=filter_linear, wrap_mode=wrap_mode), False
+    return sample2d_gather(tex, u, v, filter_linear=filter_linear, wrap_mode=wrap_mode), False

@@ -197,3 +197,84 @@ def test_mattias_slice_cuda_matches_cpu(cuda_device, tmp_path):
             assert bg.LAUNCHES == before + 2
     d = (outs[0].int() - outs[1].int()).abs()
     assert int(d.max()) <= 1 and float((d != 0).float().mean()) <= 1e-3
+
+
+def _wild_uv(rng, ho, wo, device):
+    """A warp that no tile's footprint fits: random coordinates over the
+    whole texture and beyond, with NaN, +-inf and 1e10 in the first row."""
+    u = (rng.random((ho, wo)) * 1.4 - 0.2).astype(np.float32)
+    v = (rng.random((ho, wo)) * 1.4 - 0.2).astype(np.float32)
+    u[0, :6] = [np.nan, np.inf, -np.inf, 1e10, -1e10, 3e9]
+    v[0, 6:12] = [np.nan, np.inf, -np.inf, 1e10, -1e10, 3e9]
+    return torch.from_numpy(u).to(device), torch.from_numpy(v).to(device)
+
+
+# (batch, texture h, w, output h, w, warp): ragged tiles (neither output
+# side a multiple of the 64 x 16 tile) on the crt-mattias warp, and the
+# wild warp that sends every tile to the wide path.
+BLUR_EDGES = [(3, 60, 80, 137, 203, "mattias"), (1, 48, 64, 97, 130, "mattias"), (2, 60, 80, 40, 100, "wild")]
+
+
+@pytest.mark.parametrize("formulation", ["v1", "v2"])
+@pytest.mark.parametrize("b,h,w,ho,wo,warp", BLUR_EDGES)
+def test_blur_kernel_equals_plain_at_edges(cuda_device, monkeypatch, formulation, b, h, w, ho, wo, warp):
+    monkeypatch.setenv("RCTPU_BLUR", formulation)
+    rng = np.random.default_rng(ho + wo)
+    tex = torch.from_numpy(rng.random((b, h, w, 3)).astype(np.float32)).to(cuda_device)
+    if warp == "wild":
+        u, v = _wild_uv(rng, ho, wo, cuda_device)
+    else:
+        u, v = mattias_uv(wo, ho, 0.5, cuda_device)
+    groups = mattias_groups(wo, ho)
+    bg.wide_tiles(reset=True)
+    got = bg.blur5x5_groups(tex, u, v, groups)
+    wide = bg.wide_tiles(reset=True)
+    want = bg.blur5x5_groups_plain(tex, u, v, groups, bg.weight_tables(groups, formulation))
+    for ch in (0, 1, 2):
+        assert got[ch].shape == (b, ho, wo)
+        assert torch.equal(got[ch], want[ch])
+    if warp == "wild":
+        assert wide == b * -(-ho // 16) * -(-wo // 64)  # every tile, every frame
+
+
+def test_blur_kernel_mattias_1080p_takes_no_wide_tile(cuda_device):
+    """At crt-mattias's own shape (one 240x320 frame to 1080p, the
+    curvature at its CURVATURE=1 ceiling) every tile's footprint fits the
+    shared budget."""
+    rng = np.random.default_rng(7)
+    tex = torch.from_numpy(rng.random((1, 240, 320, 3)).astype(np.float32)).to(cuda_device)
+    groups = mattias_groups(1920, 1080)
+    for curvature in (0.0, 0.5, 1.0):
+        u, v = mattias_uv(1920, 1080, curvature, cuda_device)
+        bg.wide_tiles(reset=True)
+        got = bg.blur5x5_groups(tex, u, v, groups)
+        assert bg.wide_tiles(reset=True) == 0
+        want = bg.blur5x5_groups_plain(tex, u, v, groups, bg.weight_tables(groups, "v2"))
+        assert all(torch.equal(got[ch], want[ch]) for ch in (0, 1, 2))
+
+
+@pytest.mark.parametrize("y_identity", [False, True], ids=["y", "y-identity"])
+@pytest.mark.parametrize("c", [3, 4])
+@pytest.mark.parametrize("w,r", [(50, 2), (40, 3), (50, 4), (40, 5), (50, 6), (48, 3)])
+def test_xphase_kernel_equals_dense_and_plain_at_edges(cuda_device, w, r, c, y_identity):
+    """r = 2..6 at C = 3 and 4. At C = 3 rows of r*w*c bytes are no
+    multiple of 16 (40 -> 120 is 360 bytes, 40 -> 200 is 600) but for
+    48 -> 144 (432), so rows start off the 16-byte grid and the kernel's
+    ragged heads and tails are written byte by byte. (An odd ratio of a
+    50-texel row has no phase plan: f32 coordinates break its pattern.)"""
+    rng = np.random.default_rng(100 * w + 10 * r + c)
+    h, oh = (37, 37) if y_identity else (30, 67)
+    grid = (rng.integers(0, 256, size=(2, h, w, c)) / 255.0).astype(np.float32)
+    tex = np.where(rng.random((2, h, w, c)) < 0.5, grid, rng.random((2, h, w, c)) * 1.2 - 0.1).astype(np.float32)
+    t = torch.from_numpy(tex).to(cuda_device)
+    ax = _blit_axes(w, r * w)
+    ay = None if y_identity else _blit_axes(h, oh)
+    plan = rs._xphase_plan(ax, w, r * w)
+    assert plan is not None and plan[0] == r
+    before = rs.XPHASE_LAUNCHES
+    got = rs.resample_u8_xphase(t, ay, plan)
+    assert rs.XPHASE_LAUNCHES == before + 1
+    assert got.shape == (2, oh, r * w, c)
+    assert torch.equal(got, rs.resample_u8(t, ay, ax))
+    ytaps = None if ay is None else tuple(torch.from_numpy(x).to(cuda_device) for x in rs.axis_taps(ay))
+    assert torch.equal(got, rs.resample_u8_xphase_plain(t, ytaps, plan))

@@ -5,18 +5,19 @@ parameters, same input frames (numpy, from a seed).
 Tolerance. Expected bit-equal; accepted: u8 outputs differ by at most
 1 step in at most 0.1% of values, f32 outputs by at most 1e-6 except
 where an in-chain RGBA8 store flipped one code (then by at most
-1/255 + 1e-6, in at most 0.1% of values). Reason: XLA-CPU contracts
-``a*b + c`` into FMAs inside its fusions (``mix``, the lerp of a
-LINEAR tap, the resampling dot products) and eager torch does not, so
-a value within an ulp of a u8 rounding boundary can round the other
-way. Measured on this suite (CPU): feedback-ghost u8 max 1 step in
-<= 1.35e-4 of values, f32 max 1/255 (+9e-10) in <= 1.35e-4 of values
-(batch 1: 1.16e-5, batch 8: 9.84e-5; contracting ``mix`` alone made
-batch 1 bit-equal but left batch 8 at 9.11e-5, so the port keeps it
-uncontracted: ROADMAP queue 3);
-the warped pass bit-equal (u8 and f32); the history shader u8 max
-1 step in <= 1.39e-4 of values. With weights 0.5 / 0.3 / 0.2 the history
-shader differs in up to 1.07e-2 of u8 values, bounded on its own below.
+1/255 + 1e-6, in at most 0.1% of values). Reason: the port mirrors what
+XLA-CPU does to the reference's f32 arithmetic where the compiled HLO
+shows it (it contracts ``a*b + c`` into FMAs inside its fusions: the
+evaluator's ``+``/``-``, ``mix``, the LINEAR tap sums; it folds scalar
+constants into the u8 scale of a re-quantised tap), but not the
+accumulation order of its dot products, so a value within an ulp of a
+u8 rounding boundary can still round the other way. Measured on this
+suite (CPU): feedback-ghost bit-equal (u8 and f32, batches 1, 4 and 8;
+held bit-equal at batches 1 and 8 below); the warped pass bit-equal (u8
+and f32); the history shader u8 max 1 step in <= 1.04e-4 of values. With
+weights 0.5 / 0.3 / 0.2 the history shader differs in at most 4.34e-5 of
+u8 values (the ring's seed entry, a LINEAR resize through XLA's dot),
+held to the 10x gate of ROADMAP queue 3 below.
 """
 
 import os
@@ -84,11 +85,10 @@ void main()
 )
 
 # Weighted sums of u8-grid texels land exactly on .5 code boundaries
-# whenever the weights are short decimals, and there XLA's fused
-# multiply-add and torch's two roundings round apart: 1.07% of values
-# differ with 0.5 / 0.3 / 0.2 and 0.31% with 0.45 / 0.35 / 0.2 (recorded
-# in ROADMAP queue 3). Three-digit weights make exact ties rare, so this
-# test measures the history ring rather than the tie rule.
+# whenever the weights are short decimals, where the rounding of every
+# product and sum decides the code (test_history_tie_weights_fault_is_
+# bounded). Three-digit weights make exact ties rare, so this test
+# measures the history ring rather than the tie rule.
 HISTORY_GLSL = VERTEX + """
 varying vec2 vTexCoord;
 uniform sampler2D Texture;
@@ -249,17 +249,18 @@ def test_history_ring_matches_jax():
 
 
 def test_history_tie_weights_fault_is_bounded():
-    """The open fault of ROADMAP queue 3: with short-decimal weights
+    """ROADMAP queue 3's fault and its gate: with short-decimal weights
     ``0.5*c + 0.3*p + 0.2*p1`` over u8-grid texels, sums land exactly on
-    .5 code boundaries, where XLA's fused multiply-adds and torch's two
-    roundings round apart. Measured (CPU, 3 applies of 2 frames):
-    1.07e-2, 7.20e-3 and 7.38e-3 of u8 values differ, each by 1 step.
-    Contracting the evaluator's binary ``+``/``-`` with a product operand
-    (fma32) was tried and not kept: the left product gave 7.69e-3,
-    5.31e-3 and 5.86e-3, the right one 3.06e-3, 2.32e-3 and 2.63e-3 (not
-    the 10x that the change had to bring), and feedback-ghost-nv12 did
-    not move at batch 1, 4 or 8. The residue also comes from the LINEAR
-    tap sums (their dot products contract in XLA)."""
+    .5 code boundaries, where every rounding decides the code. The
+    reference's compiled HLO folds ``0.5 * f32(1/255)`` into the
+    re-quantised NEAREST tap of ``c`` (its saturating u8 convert keeps
+    that product out of any FMA) and LLVM contracts ``0.3*p`` and
+    ``0.2*p1`` into the adds, as well as the LINEAR history taps' sums;
+    the port mirrors all three. Before: 1.07e-2, 7.20e-3 and 7.38e-3 of
+    u8 values differed (3 applies of 2 frames); now 4.34e-5, 3.47e-5 and
+    8.68e-6, all in the ring's seed entry (the first frame resized through
+    XLA's dot, whose accumulation order the port does not mirror). The
+    gate is 10x fewer than before: <= 1.07e-3 per apply."""
     with tempfile.TemporaryDirectory() as td:
         path = os.path.join(td, "history-tie.glsl")
         with open(path, "w") as f:
@@ -269,7 +270,20 @@ def test_history_tie_weights_fault_is_bounded():
             a, b = _apply(je, te, _rgb(500 + i, 2), "u8")
             d = np.abs(a.astype(np.int32) - b.astype(np.int32))
             assert d.max() <= 1, f"max {d.max()} u8 steps"
-            assert (d != 0).mean() <= 0.015, f"{(d != 0).mean():.2e} of values differ"
+            assert (d != 0).mean() <= 1.07e-3, f"{(d != 0).mean():.2e} of values differ"
+
+
+@pytest.mark.parametrize("output", ["u8", "f32"])
+@pytest.mark.parametrize("batch", [1, 8])
+def test_feedback_ghost_nv12_bit_equal_to_jax(batch, output):
+    """With ``mix`` and the PassFeedback LINEAR taps contracted as the
+    reference's fusion contracts them, feedback-ghost-nv12 is bit-equal
+    to the JAX engine (before: up to 3.47e-5 of u8 values at batch 1 and
+    1.24e-4 at batch 8 differed)."""
+    je, te = _engines(FEEDBACK, "nv12")
+    for i in range(3):
+        a, b = _apply(je, te, _nv12(100 + i, batch), output)
+        assert np.array_equal(a, b), f"apply {i}: {(a != b).mean():.2e} of values differ"
 
 
 def test_engine_defaults_to_the_card(monkeypatch):

@@ -166,3 +166,57 @@ def test_evaluator_matches_jax(name):
         assert np.array_equal(np.isnan(a), np.isnan(b))
         d = np.abs(np.nan_to_num(a.astype(np.float64)) - np.nan_to_num(b))
         assert d.max() <= 2e-5, f"max |d| {d.max():.3e}"
+
+
+THREE_TERMS = """
+void main()
+{
+    vec4 c = texture2D(Texture, vTexCoord);
+    vec4 p = texture2D(Texture, vTexCoord + vec2(1.0, 0.0) / TextureSize);
+    vec4 q = texture2D(Texture, vTexCoord + vec2(0.0, 1.0) / TextureSize);
+    gl_FragColor = 0.5 * c + 0.3 * p + 0.2 * q;
+}
+"""
+
+# The pass renders at 2.5x its 24x32 source, so its NEAREST taps take the
+# separable one-hot lowering, where the reference re-quantises a tap of
+# an RGBA8-quantized texture through uint8.
+UPSCALE_GLSLP = """shaders = 1
+shader0 = three.glsl
+filter_linear0 = false
+float_framebuffer0 = true
+scale_type0 = viewport
+scale0 = 1.0
+"""
+
+
+@pytest.mark.parametrize("quantized", [True, False], ids=["u8-input", "f32-input"])
+def test_three_term_sum_matches_jax_bit_for_bit(quantized):
+    """``0.5*c + 0.3*p + 0.2*q`` over three NEAREST taps, stored to a float
+    framebuffer so that the f32 sums are compared as they are. A u8 RGB
+    frame makes the chain input quantized: the reference's HLO then folds
+    each weight into its tap's u8 scale (``k * f32(w * f32(1/255))``, kept
+    out of any FMA by the saturating convert), which the port mirrors. The
+    same values as an f32 frame are not quantized and must not be folded:
+    there the three products are plain, and XLA contracts them into the
+    adds (the left product of the first add, then the next one)."""
+    rng = np.random.default_rng(41)
+    frames = rng.integers(0, 256, (2,) + HW + (3,), dtype=np.uint8)
+    if not quantized:
+        frames = (frames.astype(np.float32) * np.float32(1.0 / 255.0)).astype(np.float32)
+    with tempfile.TemporaryDirectory() as td:
+        with open(os.path.join(td, "three.glsl"), "w") as f:
+            f.write(VERTEX + THREE_TERMS + "\n#endif\n")
+        with open(os.path.join(td, "three.glslp"), "w") as f:
+            f.write(UPSCALE_GLSLP)
+        viewport = (80, 60)
+        je = jax_pkg.Engine(viewport=viewport)
+        te = torch_pkg.Engine(viewport=viewport, device="cpu")
+        for e in (je, te):
+            assert e.load_preset(os.path.join(td, "three.glslp")), e.last_error
+        a = np.asarray(je.apply(frames, output="f32"))
+        b = te.apply(torch.from_numpy(frames), output="f32").numpy()
+    for e in (je, te):
+        assert e.shader_active and e.last_error is None, e.last_error
+    assert a.shape == b.shape == (2, 60, 80, 3)
+    assert np.array_equal(a, b), f"{(a != b).mean():.2e} of values differ"
