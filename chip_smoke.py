@@ -10,9 +10,10 @@ its plain torch version on the card, drives the main path
 feedback-ghost-nv12 slice, a warped curvature pass, the crt-mattias hand
 kernel (default blur, ``RCTPU_BLUR=v1`` and ``RCTPU_MATTIAS=preconv``),
 feedback-ghost under ``RCTPU_XPHASE=on`` and the xbr-lv2 hand kernel,
-compares them with the port's own CPU run, counts the blur kernel's
-tiles that left shared memory for global (none may at crt-mattias's
-geometry), and times the kernels (device time per launch from CUDA events
+compares them with the port's own CPU run, counts the work that left
+shared memory for global (the blur kernel's wide tiles, the blit's and the
+xbr epilogue's general-path units: none may at the main paths'
+geometries), and times the kernels (device time per launch from CUDA events
 around it, and per call through the wrapper) against their plain versions
 (device time from torch.profiler),
 one PyTorch library call computing the same function where there is one,
@@ -116,8 +117,8 @@ scale_y0 = {h}
 # rounding keeps the 1080p -> 1080p LINEAR blit from being the identity),
 # the 320x240 -> 1080p upscale at the slice's batch (the xphase path's
 # blit with RCTPU_XPHASE off) and at B=8, the other geometries of
-# tests/test_kernels_resample.py, and x-only (src_h == dst_h) and y-only
-# (src_w == dst_w) cases.
+# tests/test_kernels_resample.py, x-only (src_h == dst_h) and y-only
+# (src_w == dst_w) cases, the 256x224 frame (x ratio 7.5) and a downscale.
 RESAMPLE_GEOMETRIES = [
     (SLICE_BATCH, 1080, 1920, 1080, 1920),
     (SLICE_BATCH, 240, 320, 1080, 1920),
@@ -128,7 +129,10 @@ RESAMPLE_GEOMETRIES = [
     (2, 240, 320, 1077, 1920),
     (2, 96, 128, 192, 256),
     (2, 240, 320, 1080, 320),
+    (8, 224, 256, 1080, 1920),
+    (2, 1080, 1920, 360, 640),
 ]
+SNES_HW = (224, 256)  # a non-integer x ratio (7.5) to 1080p
 TRUTH_CHUNK = 16  # frames per f64 truth computation (bounds its memory)
 _SPIN = "spin_kernel"  # the kernel of torch.cuda._sleep
 _SPIN_CYCLES = 1_000_000  # about 0.5 ms at the H100's SM clock
@@ -344,12 +348,15 @@ def phase_resample(gen):
     for b, h, w, oh, ow in RESAMPLE_GEOMETRIES:
         ay, ax = rs.blit_matrices(h, w, ow, oh)
         tex = knife_tex(gen, (b, h, w, 3), DEV)
+        rs.general_blocks(reset=True)
         got = rs.resample_u8(tex, ay, ax)
+        general = rs.general_blocks(reset=True)
         ay_t = None if ay is None else torch.from_numpy(ay).to(DEV)
         ax_t = None if ax is None else torch.from_numpy(ax).to(DEV)
         plain = rs.resample_u8_plain(tex, ay_t, ax_t)
         check(got.shape == (b, oh, ow, 3) and got.dtype == torch.uint8, f"resample shape {tuple(got.shape)}")
         what = f"{b}x{h}x{w} -> {oh}x{ow}"
+        check(general == 0, f"resample {what}: {general} units of work took the general path")
         for s in range(0, b, TRUTH_CHUNK):
             q64, edge = _truth_u8(tex[s : s + TRUTH_CHUNK], ay_t, ax_t)
             for label, out in (("kernel", got), ("plain", plain)):
@@ -360,7 +367,7 @@ def phase_resample(gen):
             del q64, edge
         kd = int((got.to(torch.int32) - plain.to(torch.int32)).abs().max())
         worst = max(worst, kd)
-        say("3", f"resample_u8 {what}: ok (kernel vs plain max {kd} step)")
+        say("3", f"resample_u8 {what}: ok (kernel vs plain max {kd} step, general-path units {general})")
         del got, plain, tex
     return worst
 
@@ -734,18 +741,18 @@ def _xbr_engine(Engine, path, viewport, small=0.0, dev=None):
     return e
 
 
-def _xbr_plain_args(S, bx, fpx, fpy):
-    import numpy as np
-    import torch
-
-    return (S,) + tuple(torch.from_numpy(np.asarray(a)).to(S.device) for a in (bx, fpx, fpy))
+def _xbr_plain_args(S, maps):
+    """The plain version's arguments from an epilogue call's (S, the
+    geometry's EpilogueMaps)."""
+    return S, maps.bx, maps.fpx, maps.fpy
 
 
 def phase_xbr_kernel(gen, Engine, path):
     """The xbr epilogue kernel against its plain version, bit-equal, on
     the front section's own S: one random frame at the main path's shape
-    (240x320 -> 1080x1920) and at XBR_GEOMETRIES, small_details 0 and 1.
-    Returns the worst |d| and the main path's epilogue inputs."""
+    (240x320 -> 1080x1920) and at XBR_GEOMETRIES, small_details 0 and 1;
+    no block may take the general path there. Returns the worst |d| and
+    the main path's epilogue inputs (S, the geometry's maps)."""
     import torch
 
     from retrocapture_tpu_torch.ops.cuda import xbr_epilogue as xe
@@ -761,16 +768,19 @@ def phase_xbr_kernel(gen, Engine, path):
             what = f"S {tuple(calls[0][0].shape) if calls else None} -> {vp[1]}x{vp[0]} small_details={small:g}"
             check(len(calls) == 1, f"xbr {h}x{w} -> {vp}: the hand kernel did not engage ({len(calls)} calls)")
             args = calls[0]
+            xe.general_blocks(reset=True)
             got = xe.xbr_epilogue(*args)
+            general = xe.general_blocks(reset=True)
             want = xe.xbr_epilogue_plain(*_xbr_plain_args(*args))
             torch.cuda.synchronize()
+            check(general == 0, f"xbr epilogue {what}: {general} blocks took the general path")
             check(tuple(got.shape) == (1, vp[1], vp[0], 4), f"xbr epilogue {what}: shape {tuple(got.shape)}")
             err = float((got - want).abs().max())
             check(bool(torch.equal(got, want)), f"xbr epilogue {what}: not bit-equal to plain (max |d| {err:.3e})")
             worst = max(worst, err)
             if main is None:
                 main = args
-            say("13", f"xbr_epilogue {what}: ok (bit-equal to plain)")
+            say("13", f"xbr_epilogue {what}: ok (bit-equal to plain, general-path blocks {general})")
     return worst, main
 
 
@@ -787,6 +797,7 @@ def phase_xbr_slice(gen, Engine, path):
     frames = torch.randint(0, 256, (XBR_BATCH, h, w, 3), generator=gen, device=DEV, dtype=torch.uint8)
     e = _xbr_engine(Engine, path, VIEWPORT)
     xe.LAUNCHES = 0
+    xe.general_blocks(reset=True)
     for i in range(3):
         out = e.apply(frames, output="u8")
         torch.cuda.synchronize()
@@ -794,7 +805,10 @@ def phase_xbr_slice(gen, Engine, path):
         check(tuple(out.shape) == (XBR_BATCH, vh, vw, 3), f"xbr shape {tuple(out.shape)}")
         check(out.dtype == torch.uint8 and out.device.type == torch.device(DEV).type, f"xbr dtype {out.dtype} on {out.device}")
     launches = xe.LAUNCHES
+    general = xe.general_blocks(reset=True)
     check(launches == 3 * XBR_BATCH, f"xbr: epilogue kernel launches {launches}, want {3 * XBR_BATCH}")
+    check(general == 0, f"xbr: {general} epilogue blocks took the general path")
+    check(len(e._program.kernel_cache) == 1, f"xbr: {len(e._program.kernel_cache)} geometries kept, want 1")
     # Not the stand-in's passthrough: xbr blends the NEAREST upscale at edges.
     ys = (torch.arange(vh, device=DEV) * h) // vh
     xs = (torch.arange(vw, device=DEV) * w) // vw
@@ -806,7 +820,8 @@ def phase_xbr_slice(gen, Engine, path):
         outs.append(e2.apply(frames[:2].to(dev), output="u8").cpu())
         _engine_ok(e2, f"xbr {dev} reference run")
     dmax, frac = _cmp_u8(outs[0], outs[1], "xbr cuda vs cpu")
-    say("14", f"xbr-lv2 {XBR_BATCH}x{h}x{w} rgb -> {vh}x{vw} u8, 3 applies: ok (epilogue launches {launches}; "
+    say("14", f"xbr-lv2 {XBR_BATCH}x{h}x{w} rgb -> {vh}x{vw} u8, 3 applies: ok (epilogue launches {launches}, "
+        f"general-path blocks {general}, axis maps built once; "
         f"cuda vs cpu on 2 frames: max {dmax} step, {frac:.2e} of values; {moved:.3f} of values off the NEAREST upscale)")
     es = _xbr_engine(Engine, path, VIEWPORT, small=1.0)
     xe.LAUNCHES = 0
@@ -863,13 +878,16 @@ def main() -> int:
     # Phases 5-6: the main path, counted from zero.
     rs.LAUNCHES = 0
     ws.LAUNCHES = 0
+    rs.general_blocks(reset=True)
     eng, nv12 = phase_slice(gen, Engine)
     slice_launches = rs.LAUNCHES
     with tempfile.TemporaryDirectory() as td:
         weng, wframes = phase_warp_pass(gen, Engine, Path(td))
         launches = {"resample_u8": rs.LAUNCHES, "warp_sample": ws.LAUNCHES}
+        rs_general = rs.general_blocks(reset=True)
         check(slice_launches > 0 and launches["warp_sample"] > 0, f"main-path launches {launches}")
-        say("5-6", f"main-path launches: {launches}")
+        check(rs_general == 0, f"main paths: {rs_general} resample_u8 units of work took the general path")
+        say("5-6", f"main-path launches: {launches}; resample_u8 general-path units {rs_general}")
 
         # Phase 7: timings, in turns, at the slice's shapes.
         h, w = SRC_HW
@@ -894,6 +912,26 @@ def main() -> int:
         say("7", f"resample_u8 [{SLICE_BATCH},{vh},{vw},3] -> same (feedback-ghost's own blit): device time "
             f"kernel {fg_ms:.3f} ms, plain {fg_plain:.3f} ms, bound {fg_bound[0]:.3f} ms ({fg_bound[1]})  ({card})")
         del ftex
+        sh, sw = SNES_HW
+        stex = knife_tex(gen, (SLICE_BATCH, sh, sw, 3), DEV)
+        s_ay, s_ax = rs.blit_matrices(sh, sw, vw, vh)
+        s_ay_t, s_ax_t = torch.from_numpy(s_ay).to(DEV), torch.from_numpy(s_ax).to(DEV)
+        sn_plain, sn_ms = in_turns(
+            lambda: rs.resample_u8_plain(stex, s_ay_t, s_ax_t), lambda: rs.resample_u8(stex, s_ay, s_ax),
+            10, device_ms, kernel_timer=launch_timer("resample_u8"), plain_iters=2,
+        )
+        sn_bound = blit_bound(stex, vh, vw)
+        say("7", f"resample_u8 [{SLICE_BATCH},{sh},{sw},3] -> [{SLICE_BATCH},{vh},{vw},3] (x ratio 7.5): device time "
+            f"kernel {sn_ms:.3f} ms, plain {sn_plain:.3f} ms, bound {sn_bound[0]:.3f} ms ({sn_bound[1]})  ({card})")
+        del stex
+        # The whole call: blit_u8 keeps a geometry's matrices and device
+        # tables, resample_u8 reads the caller's matrices anew.
+        rs.clear_blit_cache()
+        blit_ev = (event_ms(lambda: rs.blit_u8(tex, vw, vh), 10) + event_ms(lambda: rs.blit_u8(tex, vw, vh), 10)) / 2
+        check(bool(torch.equal(rs.blit_u8(tex, vw, vh), rs.resample_u8(tex, ay, ax))),
+              "blit_u8 through its cache differs from resample_u8 with the same matrices")
+        say("7", f"blit_u8 [{SLICE_BATCH},{h},{w},3] -> 1080p per call (CUDA events, tables from the blit cache): "
+            f"{blit_ev:.3f} ms; resample_u8 with the caller's matrices {rs_ev:.3f} ms  ({card})")
         wu0, wv0 = curvature_uv(VIEWPORT[1], VIEWPORT[0], DEV)
         ws_fns = (
             lambda: ws.warp_sample_plain(wtex, wu0, wv0, filter_linear=True, wrap_mode="clamp_to_border"),
@@ -984,15 +1022,15 @@ def main() -> int:
         from retrocapture_tpu_torch.ops.cuda import xbr_epilogue as xe
 
         xpath = write_xbr_standin(td)
-        xb_err, (xS, xbx, xfpx, xfpy) = phase_xbr_kernel(gen, Engine, xpath)
+        xb_err, (xS, xmaps) = phase_xbr_kernel(gen, Engine, xpath)
         xeng, xframes, launches["xbr_epilogue"] = phase_xbr_slice(gen, Engine, xpath)
         say("13-14", f"main-path launches: {launches}")
 
         # Phase 15: the xbr kernel against the plain tail, in turns, at the
         # main path's shape; the xbr slice's rate; the library calls.
-        xargs = _xbr_plain_args(xS, xbx, xfpx, xfpy)
+        xargs = _xbr_plain_args(xS, xmaps)
         xb_plain, xb_ms = in_turns(
-            lambda: xe.xbr_epilogue_plain(*xargs), lambda: xe.xbr_epilogue(xS, xbx, xfpx, xfpy),
+            lambda: xe.xbr_epilogue_plain(*xargs), lambda: xe.xbr_epilogue(xS, xmaps),
             50, device_ms, kernel_timer=launch_timer("xbr_epilogue"), plain_iters=5,
         )
         say("15", f"xbr_epilogue S {tuple(xS.shape)} -> [1,{VIEWPORT[1]},{VIEWPORT[0]},4]: device time kernel "
@@ -1050,7 +1088,7 @@ def main() -> int:
         # 253 f32 operations per pixel: 15 colour scales, 4 corners x 35
         # (4 ramps of 7, 4 flag products, 3 max), 72 for the mixes, 17 for
         # c_df and the select, 9 for the last mix.
-        "xbr_epilogue": bound(nbytes(xS) + 4 * (2 * len(xbx) + len(xfpy) + 65) + px * 16, 253 * px),
+        "xbr_epilogue": bound(nbytes(xS, xmaps.bx, xmaps.fpx, xmaps.fpy) + 4 * 65 + px * 16, 253 * px),
     }
 
     def entry(name, source, replaces, launched, err, ms, plain, bound_of, library):
@@ -1080,6 +1118,16 @@ def main() -> int:
                              launches[f"blur_groups_{mode}"], blur_err[mode], *blur_ms[mode], "blur_groups", None))
     kernels.append(entry("xbr_epilogue", "xbr_epilogue.cu", "xbr_epilogue.py:58", launches["xbr_epilogue"], xb_err,
                          xb_ms, xb_plain, "xbr_epilogue", None))
+    # Beside the keys every entry has: the blit at its other two timed
+    # shapes, and the general-path counts of the main paths (checked 0).
+    kernels[0]["other_shapes"] = [
+        {"shape": f"[{SLICE_BATCH},{vh},{vw},3] -> same", "ms": fg_ms, "plain_ms": fg_plain, "bound_ms": fg_bound[0]},
+        {"shape": f"[{SLICE_BATCH},{SNES_HW[0]},{SNES_HW[1]},3] -> [{SLICE_BATCH},{vh},{vw},3]", "ms": sn_ms,
+         "plain_ms": sn_plain, "bound_ms": sn_bound[0]},
+    ]
+    kernels[0]["general_path_units"] = rs_general
+    kernels[-1]["general_path_blocks"] = xe.general_blocks()
+    check(kernels[-1]["general_path_blocks"] == 0, "xbr_epilogue: blocks took the general path at the main shape")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({

@@ -349,11 +349,20 @@ def _xbr_lum(x, weights):
     return fma32(x[..., 2], weights[2], fma32(x[..., 0], weights[0], x[..., 1] * float(weights[1])))
 
 
-def _xbr_planes(tex, ty, eq_thr, lv2_cf, small, y_weight, quantized: bool):
+def _xbr_gathers(ty, h: int, w: int, dev):
+    """The front section's index tensors on ``dev``: the edge-padded
+    column gather ``[W + 4]`` and the 5 clamped row gathers ``{-2..2:
+    [OH]}`` of the row-index maps ``ty``."""
+    cols = torch.from_numpy(np.clip(np.arange(-2, w + 2), 0, w - 1)).to(dev)
+    rows = {k: torch.from_numpy(np.clip(ty[k], 0, h - 1)).to(dev) for k in (-2, -1, 0, 1, 2)}
+    return cols, rows
+
+
+def _xbr_planes(tex, gathers, eq_thr, lv2_cf, small, y_weight, quantized: bool):
     """The front section of xbr-lv2: ``tex [H, W, >=3]`` f32 (one frame),
-    ``ty`` the 5 row-index maps ``{-2..2: [OH]}`` of ``_xbr_axis_maps``
-    → ``S [19, OH, W]`` f32: the E, H, F, B, D colours x255 and the 4
-    packed flag codes (edri + 2 edr + 4 edr_left + 8 edr_up + 16 px per
+    ``gathers`` the index tensors of ``_xbr_gathers`` (from the 5
+    row-index maps of ``_xbr_axis_maps``), on tex's device → ``S [19, OH,
+    W]`` f32: the E, H, F, B, D colours x255 and the 4 packed flag codes (edri + 2 edr + 4 edr_left + 8 edr_up + 16 px per
     corner). Each y tap row is an index gather (the reference's one-hot
     einsum); x taps are column shifts of the edge-padded rows. The corner
     "vec4"s ride as [4, OH, W] stacks; every pixel sees the reference's
@@ -366,12 +375,10 @@ def _xbr_planes(tex, ty, eq_thr, lv2_cf, small, y_weight, quantized: bool):
     1; the port rounds to the level there (tests/test_torch_xbr.py holds
     S bit-equal to the reference's for u8 and f32 input)."""
     h, w = tex.shape[0], tex.shape[1]
-    dev = tex.device
     tex255 = tex[..., :3] * 255.0
     if quantized:
         tex255 = torch.round(tex255)
-    cols = torch.from_numpy(np.clip(np.arange(-2, w + 2), 0, w - 1)).to(dev)
-    rows = {k: torch.from_numpy(np.clip(ty[k], 0, h - 1)).to(dev) for k in (-2, -1, 0, 1, 2)}
+    cols, rows = gathers
     pads = {k: tex255.index_select(0, r).index_select(1, cols) for k, r in rows.items()}  # [OH, W+4, 3]
     taps = {k: p * float(_F(1.0 / 255.0)) for k, p in pads.items()}
     lum = {k: _xbr_lum(t, _XBR_RGBW) for k, t in taps.items()}
@@ -452,6 +459,10 @@ def _xbr_planes(tex, ty, eq_thr, lv2_cf, small, y_weight, quantized: bool):
     return torch.cat([x255(0, 0), x255(0, 1), x255(1, 0), x255(0, -1), x255(-1, 0), code])
 
 
+_XBR_INFEASIBLE = "infeasible"  # a geometry the kernel declines, kept as such
+_XBR_GEOMETRIES_MAX = 8  # geometries kept per program; a ninth starts anew
+
+
 def _xbr_lv2_kernel(ctx, sh):
     """xbr-lv2.glsl on the kernel library: the front section (torch, at
     [output rows, source columns]) and the epilogue (the CUDA kernel on
@@ -479,9 +490,36 @@ def _xbr_lv2_kernel(ctx, sh):
     tex = ctx.input_binding.tex
     h, w = int(tex.shape[0]), int(tex.shape[1])
     ow, oh = ctx.out_size
+    # The geometry's maps depend on the pass, the sizes and the parameters
+    # only, unless the vertex stage reads frame state: they are kept with
+    # the compiled program (the engine drops them when a parameter or the
+    # viewport changes) and built per frame otherwise.
+    cp = ctx.program.passes[ctx.i]
+    cache = ctx.program.kernel_cache if cp.vertex_static else None
+    key = ("xbr-lv2", ctx.i, w, h, ow, oh, ctx.source_size, ctx.viewport, str(tex.device))
+    geo = None if cache is None else cache.get(key)
+    if geo is None:
+        geo = _xbr_geometry(ctx, ow, oh, w, h, tex.device)
+        if cache is not None:
+            if len(cache) >= _XBR_GEOMETRIES_MAX:
+                cache.clear()
+            cache[key] = geo
+    if geo is _XBR_INFEASIBLE:
+        return None
+    gathers, maps = geo
+    S = _xbr_planes(tex, gathers, eq_thr, lv2_cf, small, y_weight, ctx.input_binding.quantized)
+    return xe.xbr_epilogue(S[None], maps)[0]
+
+
+def _xbr_geometry(ctx, ow: int, oh: int, w: int, h: int, dev):
+    """What the xbr-lv2 kernel derives from a geometry: the front
+    section's index tensors and the epilogue's maps, on ``dev``; or
+    ``_XBR_INFEASIBLE``."""
+    from retrocapture_tpu_torch.ops.cuda import xbr_epilogue as xe
+
     maps = _xbr_axis_maps(ctx, ow, oh, w, h)
     if maps is None:
-        return None
+        return _XBR_INFEASIBLE
     bx, fpx, tx, _, fpy, ty = maps
     # x-exactness gate: every x-tap's f32-floored index must equal
     # clamp(base + k) everywhere (true whenever ow/w is an integer ratio),
@@ -489,9 +527,8 @@ def _xbr_lv2_kernel(ctx, sh):
     # own exact row gather, so the y axis needs no such property.
     for k, arr in tx.items():
         if not np.array_equal(np.clip(arr, 0, w - 1), np.clip(bx + k, 0, w - 1)):
-            return None
-    S = _xbr_planes(tex, ty, eq_thr, lv2_cf, small, y_weight, ctx.input_binding.quantized)
-    return xe.xbr_epilogue(S[None], np.clip(bx, 0, w - 1).astype(np.int32), fpx, fpy)[0]
+            return _XBR_INFEASIBLE
+    return _xbr_gathers(ty, h, w, dev), xe.prepare_maps(np.clip(bx, 0, w - 1).astype(np.int32), fpx, fpy, w, dev)
 
 
 _REGISTRY = {

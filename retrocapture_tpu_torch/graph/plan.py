@@ -36,14 +36,16 @@ are compile-time constants stay numpy.
 
 from __future__ import annotations
 
+import dataclasses
 import re
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
+from retrocapture_tpu_torch.frontend import glsl_ast as A
 from retrocapture_tpu_torch.frontend.cpp import PragmaParameter, preprocess
 from retrocapture_tpu_torch.frontend.glsl_parser import parse
 from retrocapture_tpu_torch.frontend.interp import ShaderEval
@@ -115,6 +117,10 @@ class CompiledPass:
     # detection and binding checks).
     sampler_names: tuple[str, ...]
     texture_calls: int = 0  # static texture() sites (diagnostic only)
+    # The vertex stage reads nothing that changes from frame to frame
+    # (_vertex_is_static): its varyings depend on the geometry and the
+    # parameters only, so what a hand kernel derives from them may be kept.
+    vertex_static: bool = False
 
 
 @dataclass
@@ -125,6 +131,10 @@ class PresetProgram:
     # name → (pragma meta, effective default after preset override)
     parameters: dict[str, PragmaParameter]
     defaults: dict[str, float]
+    # What the hand kernels keep per (kernel, pass, sizes, device) while
+    # parameters and viewport stand; the engine clears it when either
+    # changes, and it goes with the program on load_preset / unload.
+    kernel_cache: dict = field(default_factory=dict)
 
     def uses_history(self) -> bool:
         for cp in self.passes:
@@ -191,6 +201,48 @@ def _compat_rewrites(src: str, shader_path: str, cfg) -> str:
     return src
 
 
+_FRAME_UNIFORMS = frozenset({"FrameCount", "FRAMEINDEX", "TIME", "Time"})
+
+
+def _idents(node, out: set) -> None:
+    """Every identifier referenced under an AST node."""
+    if isinstance(node, A.Ident):
+        out.add(node.name)
+    elif dataclasses.is_dataclass(node):
+        for f in dataclasses.fields(node):
+            _idents(getattr(node, f.name), out)
+    elif isinstance(node, (list, tuple)):
+        for x in node:
+            _idents(x, out)
+
+
+def _vertex_is_static(tu: A.TranslationUnit) -> bool:
+    """True when the vertex stage references no frame-state uniform
+    (FrameCount, Time, a history frame's size, a struct uniform, which
+    carries frame_count) and no sampler (texel values change with the
+    frame). A declaration alone does
+    not count: the corpus's vertex stages declare FrameCount and never read
+    it."""
+    used: set = set()
+    for d in tu.decls:
+        if isinstance(d, A.FunctionDef):
+            _idents(d.body, used)
+        elif isinstance(d, A.GlobalDecl):
+            _idents([x.init for x in d.declarators], used)
+    structs = tu.structs()
+    for g in tu.globals():
+        for d in g.declarators:
+            if d.name not in used:
+                continue
+            if g.type.name.startswith("sampler"):
+                return False
+            if g.type.is_uniform and (
+                d.name in _FRAME_UNIFORMS or g.type.name in structs or _HISTORY_SIZE_RE.match(d.name)
+            ):
+                return False
+    return True
+
+
 def compile_preset(preset: Preset) -> PresetProgram:
     passes: list[CompiledPass] = []
     all_params: dict[str, PragmaParameter] = {}
@@ -219,6 +271,7 @@ def compile_preset(preset: Preset) -> PresetProgram:
             parameters=fparams,
             sampler_names=tuple(samplers),
             texture_calls=n_tex,
+            vertex_static=_vertex_is_static(vtu),
         )
         passes.append(cp)
         for p in fparams:

@@ -34,11 +34,11 @@ _I = ctypes.c_int
 # name -> (C entry point, its argument types); every entry returns
 # cudaGetLastError() as an int and takes the stream last.
 KERNELS = {
-    "resample_u8": ("resample_u8_launch", [_P, _P] + [_P] * 8 + [_I] * 6 + [_P]),
+    "resample_u8": ("resample_u8_launch", [_P] * 12 + [_I] * 9 + [_P]),
     "warp_sample": ("warp_sample_launch", [_P] * 4 + [_I] * 7 + [_P]),
     "blur_groups": ("blur_groups_launch", [_P] * 7 + [_I] * 8 + [_P]),
     "resample_xphase": ("resample_xphase_launch", [_P, _P] + [_P] * 7 + [_I] * 6 + [_P]),
-    "xbr_epilogue": ("xbr_epilogue_launch", [_P] * 6 + [_I] * 4 + [_P]),
+    "xbr_epilogue": ("xbr_epilogue_launch", [_P] * 8 + [_I] * 7 + [_P]),
 }
 
 NVCC_FLAGS = [

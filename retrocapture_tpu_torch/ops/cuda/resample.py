@@ -10,12 +10,21 @@ Each row of ``ay`` / ``ax`` (LINEAR, clamp_to_edge) has at most two
 nonzero weights. The CUDA kernel (``csrc/resample_u8.cu``) takes those
 two (index, weight) pairs per row, read on the host from the very
 matrix the reference builds (``sampling._axis_matrix``), and sums y first
-and x second. It is bound by the bytes it writes; see the source note.
+and x second. It is bound by the bytes it moves; see the source note. The
+wrapper cuts the output columns into segments and tells the kernel which
+source columns each segment reads (``_seg_plan``); a segment whose source
+range does not fit shared memory is computed from global memory in the
+same kernel and counted in ``general_blocks()``.
 
 ``resample_u8`` launches the kernel for a CUDA tensor and takes the
 plain version (two einsums and the quantize, the reference's
 ``_einsum_fallback``) only for a CPU tensor. ``LAUNCHES`` counts kernel
 launches.
+
+``blit_u8`` keeps what it derives from a geometry ``(h, w, vw, vh)`` on
+a device (the axis matrices, the tap tables and segment plan on the device,
+the xphase plan and its tables) in a small bounded cache, so a blit of a
+known geometry uploads nothing; ``clear_blit_cache()`` empties it.
 
 ``resample_u8_xphase`` replaces
 ``retrocapture_tpu/ops/pallas/resample.py:_resample_u8_xphase``, the
@@ -29,6 +38,7 @@ sums in torch. ``XPHASE_LAUNCHES`` counts its launches.
 from __future__ import annotations
 
 import os
+from collections import OrderedDict, namedtuple
 
 import numpy as np
 import torch
@@ -44,12 +54,30 @@ __all__ = [
     "blit_u8",
     "blit_matrices",
     "axis_taps",
+    "general_blocks",
+    "clear_blit_cache",
     "LAUNCHES",
     "XPHASE_LAUNCHES",
 ]
 
 LAUNCHES = 0
 XPHASE_LAUNCHES = 0
+_GENERAL_BLOCKS = 0
+
+# The kernel's geometry (csrc/resample_u8.cu): a warp owns a segment of at
+# most 32 lanes x 8 pixels and a band of rows; the shared memory of a
+# block's 8 warps (each: two source rows of the segment's source range,
+# the y-pass row, the staged bytes) stays under the budget so that two
+# blocks share an SM. A texel of 3 channels takes 4 floats there.
+_WARPS = 8
+_SEG_MAX = 256
+_SEG_WIDTHS = (256, 128, 64, 32, 16, 8, 4)
+_SHARED_BUDGET = 110 * 1024
+_PADDED = {1: 1, 2: 2, 3: 4, 4: 4}
+_BAND = 32  # output rows per warp (at most 32); halved while the grid is small
+_MIN_BLOCKS = 1056  # 132 SMs x 8
+
+_BLIT_CACHE_MAX = 16
 
 
 def axis_taps(a: np.ndarray):
@@ -89,58 +117,137 @@ def resample_u8_plain(tex, ay, ax):
     return _quantize_u8(tex)
 
 
-def _launch(tex, ay, ax):
-    from retrocapture_tpu_torch.ops.cuda._build import load
+def general_blocks(reset: bool = False) -> int:
+    """The units of work (one warp each: one frame, one band of rows, one
+    segment of columns) that the blit kernel has computed from global
+    memory since the last reset: segments whose source range does not fit
+    the shared-memory budget. ``reset`` zeroes the count."""
+    global _GENERAL_BLOCKS
+    n = _GENERAL_BLOCKS
+    if reset:
+        _GENERAL_BLOCKS = 0
+    return n
 
-    global LAUNCHES
+
+def _seg_plan(xtaps, ow: int, c: int, has_y: bool):
+    """Cut ``ow`` output columns into segments for the kernel: ``(seg_px,
+    seg_lo [segs], seg_n [segs], cap)``. ``seg_lo`` / ``seg_n`` are the
+    first source column and the number of source columns each segment's
+    x taps read (``xtaps`` = ``axis_taps`` of the x matrix; None: the x
+    axis is the identity and a segment reads its own columns). The widest
+    segment whose shared memory stays in the budget is taken; at the
+    narrowest width a segment that still exceeds it gets ``n = 0``
+    (computed from global memory). ``cap``: the largest ``n`` times the
+    floats a texel takes in shared memory, a multiple of 4."""
+    if ow == 0:
+        return _SEG_MAX, np.zeros(0, np.int32), np.zeros(0, np.int32), 0
+    rows = 3 if has_y else 2
+    cp = _PADDED[c]
+    budget = _SHARED_BUDGET // _WARPS - (_SEG_MAX * c + 16)
+    for seg_px in _SEG_WIDTHS:
+        starts = np.arange(0, ow, seg_px)
+        if xtaps is None:
+            lo = starts
+            n = np.minimum(starts + seg_px, ow) - starts
+        else:
+            i0, _, i1, _ = xtaps
+            lo = np.minimum.reduceat(np.minimum(i0, i1), starts)
+            n = np.maximum.reduceat(np.maximum(i0, i1), starts) - lo + 1
+        need = rows * 4 * ((n * cp + 3) // 4 * 4)
+        if (need <= budget).all():
+            break
+    n = np.where(need <= budget, n, 0)
+    cap = int((n.max() * cp + 3) // 4 * 4)
+    return seg_px, lo.astype(np.int32), n.astype(np.int32), cap
+
+
+# What a launch needs beside the texture: the axes' tap tables and the
+# segment plan on the device (None tables: identity axis).
+_Dense = namedtuple("_Dense", "ytaps xtaps seg_lo seg_n seg_px cap general_segs oh ow")
+
+
+def _dense_tables(ay, ax, h: int, w: int, c: int, dev, ytaps=None) -> _Dense:
+    for a, n_in in ((ay, h), (ax, w)):
+        if a is not None and a.shape[1] != n_in:
+            raise ValueError(f"resample_u8: axis matrix {a.shape} does not match {n_in}")
+    if not 1 <= c <= 4:
+        raise ValueError(f"resample_u8: the kernel takes 1 to 4 channels, got {c}")
+    oh = h if ay is None else ay.shape[0]
+    ow = w if ax is None else ax.shape[0]
+    xt = None if ax is None else axis_taps(ax)
+    yt = None if ay is None else axis_taps(ay)
+    if ytaps is None and yt is not None:
+        ytaps = tuple(to_device(t, dev) for t in yt)
+    seg_px, lo, n, cap = _seg_plan(xt, ow, c, ay is not None)
+    if yt is not None:
+        # The kernel keeps source row r in slot r & 1: a row whose two taps
+        # would share a slot (no blit matrix has one) sends the launch to
+        # the general path.
+        apart = yt[2] - yt[0]
+        if ((apart != 0) & (apart % 2 == 0)).any():
+            n = np.zeros_like(n)
+            cap = 0
+    return _Dense(
+        ytaps, None if xt is None else tuple(to_device(t, dev) for t in xt),
+        to_device(lo, dev), to_device(n, dev), seg_px, cap, int((n == 0).sum()), oh, ow,
+    )
+
+
+def _batch4(tex, name: str):
+    """``tex`` as a contiguous f32 [B, H, W, C] and whether it was [H, W, C]."""
     if tex.dtype != torch.float32:
-        raise TypeError(f"resample_u8: tex must be float32, got {tex.dtype}")
+        raise TypeError(f"{name}: tex must be float32, got {tex.dtype}")
     squeeze = tex.dim() == 3
     t4 = tex[None] if squeeze else tex
     if t4.dim() != 4:
-        raise ValueError(f"resample_u8: tex must be [H,W,C] or [B,H,W,C], got {tuple(tex.shape)}")
-    t4 = t4.contiguous()
+        raise ValueError(f"{name}: tex must be [H,W,C] or [B,H,W,C], got {tuple(tex.shape)}")
+    return t4.contiguous(), squeeze
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(t4, dense: _Dense):
+    from retrocapture_tpu_torch.ops.cuda._build import load
+
+    global LAUNCHES, _GENERAL_BLOCKS
     b, h, w, c = t4.shape
     dev = t4.device
-    tabs = []
-    for a, n_in in ((ay, h), (ax, w)):
-        if a is None:
-            tabs.append((None, None, None, None))
-            continue
-        if a.shape[1] != n_in:
-            raise ValueError(f"resample_u8: axis matrix {a.shape} does not match {n_in}")
-        tabs.append(tuple(to_device(t, dev) for t in axis_taps(a)))
-    oh = h if ay is None else ay.shape[0]
-    ow = w if ax is None else ax.shape[0]
+    oh, ow = dense.oh, dense.ow
     out = torch.empty((b, oh, ow, c), dtype=torch.uint8, device=dev)
     if out.numel() == 0:
-        return out[0] if squeeze else out
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    fn = load("resample_u8")
-    (yi0, yw0, yi1, yw1), (xi0, xw0, xi1, xw1) = tabs
-    rc = fn(
+        return out
+    segs = dense.seg_lo.shape[0]
+    band = _BAND
+    while band > 6 and segs * -(-oh // band) * b < _MIN_BLOCKS * _WARPS:
+        band //= 2
+    rc = load("resample_u8")(
         t4.data_ptr(), out.data_ptr(),
-        ptr(yi0), ptr(yw0), ptr(yi1), ptr(yw1),
-        ptr(xi0), ptr(xw0), ptr(xi1), ptr(xw1),
-        b, h, w, c, oh, ow,
+        *(_ptr(t) for t in dense.ytaps or (None,) * 4),
+        *(_ptr(t) for t in dense.xtaps or (None,) * 4),
+        dense.seg_lo.data_ptr(), dense.seg_n.data_ptr(),
+        b, h, w, c, oh, ow, dense.seg_px, band, dense.cap,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"resample_u8 kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
-    return out[0] if squeeze else out
+    _GENERAL_BLOCKS += dense.general_segs * -(-oh // band) * b
+    return out
 
 
 def resample_u8(tex, ay, ax):
     """``tex [H, W, C]`` or ``[B, H, W, C]`` f32; ``ay [OH, H]`` /
     ``ax [OW, W]`` numpy axis matrices or None (identity axis, skipped)
-    → u8 ``[..., OH, OW, C]``. A CUDA tensor launches the kernel; a CPU
-    tensor takes the plain version."""
+    → u8 ``[..., OH, OW, C]``. A CUDA tensor launches the kernel (1 to 4
+    channels); a CPU tensor takes the plain version. The caller's matrices
+    are read anew on every call; ``blit_u8`` caches its own."""
     if tex.is_cuda:
-        return _launch(tex, ay, ax)
+        t4, squeeze = _batch4(tex, "resample_u8")
+        _, h, w, c = t4.shape
+        out = _launch(t4, _dense_tables(ay, ax, h, w, c, t4.device))
+        return out[0] if squeeze else out
     if tex.device.type != "cpu":
         raise RuntimeError(f"resample_u8: no kernel for device {tex.device}")
     dev = tex.device
@@ -226,11 +333,21 @@ def resample_u8_xphase_plain(tex, ytaps, plan):
     return _quantize_u8(out)
 
 
-def _launch_xphase(t4, ytaps, plan):
+def _xphase_tables(plan, dev):
+    """The plan's phase tables ``(d, w0, w1)`` on ``dev``."""
+    _, d, w0, w1 = plan
+    return (
+        torch.tensor(d, dtype=torch.int32, device=dev),
+        to_device(w0, dev).contiguous(),
+        to_device(w1, dev).contiguous(),
+    )
+
+
+def _launch_xphase(t4, ytaps, plan, tables=None):
     from retrocapture_tpu_torch.ops.cuda._build import load
 
     global XPHASE_LAUNCHES
-    r, d, w0, w1 = plan
+    r = plan[0]
     b, h, w, c = t4.shape
     if not 1 <= c <= 4:
         raise ValueError(f"resample_u8_xphase: the kernel takes 1 to 4 channels, got {c}")
@@ -239,15 +356,9 @@ def _launch_xphase(t4, ytaps, plan):
     out = torch.empty((b, oh, r * w, c), dtype=torch.uint8, device=dev)
     if out.numel() == 0:
         return out
-    yi0, yw0, yi1, yw1 = (None,) * 4 if ytaps is None else ytaps
-    d_t = torch.tensor(d, dtype=torch.int32, device=dev)
-    w0_t, w1_t = to_device(w0, dev).contiguous(), to_device(w1, dev).contiguous()
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+    d_t, w0_t, w1_t = tables or _xphase_tables(plan, dev)
     rc = load("resample_xphase")(
-        t4.data_ptr(), out.data_ptr(), ptr(yi0), ptr(yw0), ptr(yi1), ptr(yw1),
+        t4.data_ptr(), out.data_ptr(), *(_ptr(t) for t in ytaps or (None,) * 4),
         d_t.data_ptr(), w0_t.data_ptr(), w1_t.data_ptr(),
         b, h, w, c, oh, r,
         torch.cuda.current_stream(dev).cuda_stream,
@@ -258,25 +369,23 @@ def _launch_xphase(t4, ytaps, plan):
     return out
 
 
-def resample_u8_xphase(tex, ay, plan):
+def resample_u8_xphase(tex, ay, plan, *, ytaps=None, tables=None):
     """``tex [H, W, C]`` or ``[B, H, W, C]`` f32; ``ay [OH, H]`` numpy
     axis matrix or None (identity); ``plan`` from ``_xphase_plan`` → u8
     ``[..., OH, r*W, C]``. A CUDA tensor launches the kernel; a CPU
-    tensor takes the plain version."""
-    if tex.dtype != torch.float32:
-        raise TypeError(f"resample_u8_xphase: tex must be float32, got {tex.dtype}")
-    squeeze = tex.dim() == 3
-    t4 = (tex[None] if squeeze else tex).contiguous()
-    if t4.dim() != 4:
-        raise ValueError(f"resample_u8_xphase: tex must be [H,W,C] or [B,H,W,C], got {tuple(tex.shape)}")
+    tensor takes the plain version. ``ytaps`` (``axis_taps(ay)`` as
+    tensors on tex's device) and ``tables`` (``_xphase_tables``) spare a
+    caller that keeps them the uploads."""
+    t4, squeeze = _batch4(tex, "resample_u8_xphase")
     if plan[2].shape[1] != t4.shape[2]:
         raise ValueError(f"resample_u8_xphase: plan for width {plan[2].shape[1]}, tex width {t4.shape[2]}")
     if ay is not None and ay.shape[1] != t4.shape[1]:
         raise ValueError(f"resample_u8_xphase: axis matrix {ay.shape} does not match {t4.shape[1]}")
     dev = t4.device
-    ytaps = None if ay is None else tuple(to_device(t, dev) for t in axis_taps(ay))
+    if ytaps is None and ay is not None:
+        ytaps = tuple(to_device(t, dev) for t in axis_taps(ay))
     if t4.is_cuda:
-        out = _launch_xphase(t4, ytaps, plan)
+        out = _launch_xphase(t4, ytaps, plan, tables)
     elif dev.type == "cpu":
         out = resample_u8_xphase_plain(t4, ytaps, plan)
     else:
@@ -298,19 +407,90 @@ def blit_matrices(h: int, w: int, vw: int, vh: int):
     return ay, ax
 
 
+class _BlitPlan:
+    """What ``blit_u8`` derives from one geometry on one device, each part
+    built at its first use: the axis matrices (host, and as tensors for
+    the plain version), the y taps, the kernel's tables per channel
+    count, and the xphase plan with its device tables."""
+
+    _UNSET = object()
+
+    def __init__(self, h: int, w: int, vw: int, vh: int, device):
+        self.h, self.w, self.vw, self.device = h, w, vw, device
+        self.ay, self.ax = blit_matrices(h, w, vw, vh)
+        self._ytaps = self._mats = self._xplan = self._UNSET
+        self._dense: dict = {}
+
+    @property
+    def ytaps(self):
+        if self._ytaps is self._UNSET:
+            self._ytaps = None if self.ay is None else tuple(
+                to_device(t, self.device) for t in axis_taps(self.ay))
+        return self._ytaps
+
+    @property
+    def matrices(self):
+        if self._mats is self._UNSET:
+            self._mats = tuple(None if a is None else to_device(a, self.device) for a in (self.ay, self.ax))
+        return self._mats
+
+    def dense(self, c: int) -> _Dense:
+        d = self._dense.get(c)
+        if d is None:
+            d = self._dense[c] = _dense_tables(self.ay, self.ax, self.h, self.w, c, self.device, self.ytaps)
+        return d
+
+    @property
+    def xphase(self):
+        """(plan, device tables or None on the CPU), or None where the x
+        axis has no integer phase structure."""
+        if self._xplan is self._UNSET:
+            plan = None if self.ax is None else _xphase_plan(self.ax, self.w, self.vw)
+            cuda = plan is not None and torch.device(self.device).type == "cuda"
+            self._xplan = None if plan is None else (plan, _xphase_tables(plan, self.device) if cuda else None)
+        return self._xplan
+
+
+_BLIT_CACHE: OrderedDict = OrderedDict()
+
+
+def clear_blit_cache() -> None:
+    _BLIT_CACHE.clear()
+
+
+def _blit_plan(h: int, w: int, vw: int, vh: int, device) -> _BlitPlan:
+    """The cached plan of a geometry on a device; the least recently used
+    entry leaves when the cache is full."""
+    key = (h, w, vw, vh, str(device))
+    plan = _BLIT_CACHE.get(key)
+    if plan is None:
+        plan = _BLIT_CACHE[key] = _BlitPlan(h, w, vw, vh, device)
+        while len(_BLIT_CACHE) > _BLIT_CACHE_MAX:
+            _BLIT_CACHE.popitem(last=False)
+    else:
+        _BLIT_CACHE.move_to_end(key)
+    return plan
+
+
 def blit_u8(tex, vw: int, vh: int):
     """Final viewport blit (LINEAR, clamp_to_edge) fused with the uint8
     pack: ``tex [..., H, W, C]`` f32 → u8 ``[..., vh, vw, C]``. An
     identity-identity blit is the plain quantize, as in the reference.
     ``RCTPU_XPHASE=on`` takes the phase-form kernel where the x axis is
     an integer upscale (the reference's resample.py:421-425; its VMEM
-    guard ``_xphase_fits`` has no counterpart here)."""
+    guard ``_xphase_fits`` has no counterpart here). The geometry's
+    matrices and device tables come from the blit cache."""
     h, w = tex.shape[-3], tex.shape[-2]
-    ay, ax = blit_matrices(h, w, vw, vh)
-    if ay is None and ax is None:
+    plan = _blit_plan(h, w, vw, vh, tex.device)
+    if plan.ay is None and plan.ax is None:
         return _quantize_u8(tex)
-    if ax is not None and os.environ.get("RCTPU_XPHASE", "off") == "on":
-        plan = _xphase_plan(ax, w, vw)
-        if plan is not None:
-            return resample_u8_xphase(tex, ay, plan)
-    return resample_u8(tex, ay, ax)
+    if plan.ax is not None and os.environ.get("RCTPU_XPHASE", "off") == "on" and plan.xphase is not None:
+        xplan, tables = plan.xphase
+        return resample_u8_xphase(tex, plan.ay, xplan, ytaps=plan.ytaps, tables=tables)
+    if tex.is_cuda:
+        t4, squeeze = _batch4(tex, "resample_u8")
+        out = _launch(t4, plan.dense(t4.shape[3]))
+        return out[0] if squeeze else out
+    if tex.device.type != "cpu":
+        raise RuntimeError(f"resample_u8: no kernel for device {tex.device}")
+    return resample_u8_plain(tex, *plan.matrices)

@@ -17,9 +17,18 @@ rest at full resolution:
 
 The TPU kernel rebuilds the x-upsample from a rotated 128-lane window
 (Mosaic gathers are single-vreg), which is why the reference has
-``xbr_epilogue_fits``. The CUDA kernel (``csrc/xbr_epilogue.cu``) is one
-thread per output pixel: 19 reads at ``(b, c, y, bx[x])`` through L1 and
-one 16-byte store; it has no width limit. See the source for its bound.
+``xbr_epilogue_fits``. The CUDA kernel (``csrc/xbr_epilogue.cu``) works on
+tiles of output rows x output columns: the work that depends only on the
+source texel is done once per texel into shared memory, the rest per
+output pixel, one 16-byte store each. It has no width limit: a column
+tile whose source range does not fit shared memory is computed from
+global memory in the same kernel and counted in ``general_blocks()``.
+See the source for its bound.
+
+``prepare_maps`` validates ``bx``, ``fpx``, ``fpy`` for a source width,
+puts them on a device and plans the kernel's column tiles; a caller that
+keeps its result (the xbr-lv2 hand kernel does, per geometry) uploads
+nothing per call.
 
 Numerics are those of the reference as ``jax.jit`` compiles it on the
 CPU, measured in tests/test_torch_xbr.py: XLA contracts each mix
@@ -40,10 +49,20 @@ import torch
 
 from retrocapture_tpu_torch.policy import fma32
 
-__all__ = ["xbr_epilogue", "xbr_epilogue_plain", "LAUNCHES"]
+__all__ = ["xbr_epilogue", "xbr_epilogue_plain", "prepare_maps", "EpilogueMaps", "general_blocks", "LAUNCHES"]
 
 LAUNCHES = 0
+_GENERAL_BLOCKS = 0
 _NCH = 19  # E, H, F, B, D colours x255 (15 planes) + 4 code planes
+
+# The kernel's geometry (csrc/xbr_epilogue.cu): one output column a
+# thread, a block of 128 to 256 threads (the width that pads the output
+# row least), up to 8 output rows a block; a source texel's record takes
+# 112 bytes of shared memory, and a block's records stay under the budget.
+_TILE_WIDTHS = (256, 224, 192, 160, 128)
+_TEXEL_BYTES = 112
+_SHARED_BUDGET = 48 * 1024
+_ROWS_MAX = 8
 
 # vec4 line constants (xbr-lv2.glsl:182-191); XBR_SCALE = 3.0
 _AO = np.array([1.0, -1.0, -1.0, 1.0], np.float32)
@@ -135,65 +154,126 @@ def xbr_epilogue_plain(S, bx, fpx, fpy):
     return torch.cat([res, alpha], dim=1).permute(0, 2, 3, 1).contiguous()
 
 
-_TABLES: dict = {}
+def general_blocks(reset: bool = False) -> int:
+    """The blocks (one frame, one tile of rows x columns) that the kernel
+    has computed from global memory since the last reset: column tiles
+    whose source range does not fit the shared-memory budget. ``reset``
+    zeroes the count."""
+    global _GENERAL_BLOCKS
+    n = _GENERAL_BLOCKS
+    if reset:
+        _GENERAL_BLOCKS = 0
+    return n
 
 
-def _table(device) -> torch.Tensor:
-    """The kernel's constants on ``device``: the ramp table (64 floats)
-    and 1/255."""
-    t = _TABLES.get(device)
-    if t is None:
-        t = torch.from_numpy(np.append(_ramp_table().reshape(-1), _INV255)).to(device)
-        _TABLES[device] = t
-    return t
+class EpilogueMaps:
+    """``bx``, ``fpx``, ``fpy`` of one geometry, validated, as tensors on a
+    device, with the kernel's plan of column tiles (``prepare_maps``)."""
+
+    __slots__ = ("bx", "fpx", "fpy", "w", "tile_px", "rows", "max_n", "tile_lo", "tile_n", "general_tiles")
 
 
-def _launch(S, bx, fpx, fpy):
+def _tile_plan(bx: np.ndarray):
+    """``(tile_px, rows, max_n, tile_lo, tile_n)`` for the source columns
+    ``bx [OW]``: the tile width, and per tile the first source column and
+    the number of source columns it is mapped to (any ``bx`` has such a
+    range); ``n = 0`` for a tile whose range exceeds the budget at one row
+    a block. ``rows``: output rows a block, among the counts the budget
+    allows (from half the most on) the one whose texels (``rows x max_n``,
+    prepared once per block by all threads in turns) leave the fewest
+    threads idle in the last turn; the larger of equals."""
+    ow = bx.shape[0]
+    if ow < _TILE_WIDTHS[-1]:
+        tile_px = max(32, -(-ow // 32) * 32)
+    else:
+        tile_px = min(_TILE_WIDTHS, key=lambda t: (-(-ow // t) * t, -t))
+    starts = np.arange(0, ow, tile_px)
+    lo = np.minimum.reduceat(bx, starts)
+    n = np.maximum.reduceat(bx, starts) - lo + 1
+    n = np.where(n * _TEXEL_BYTES <= _SHARED_BUDGET, n, 0)
+    max_n = int(n.max())
+    if max_n == 0:
+        return tile_px, _ROWS_MAX, max_n, lo.astype(np.int32), n.astype(np.int32)
+    most = max(1, min(_ROWS_MAX, _SHARED_BUDGET // (_TEXEL_BYTES * max_n)))
+    rows = min(range(-(-most // 2), most + 1), key=lambda r: (-(r * max_n) % tile_px / (r * max_n), -r))
+    return tile_px, rows, max_n, lo.astype(np.int32), n.astype(np.int32)
+
+
+def prepare_maps(bx, fpx, fpy, w: int, device) -> EpilogueMaps:
+    """Validate ``bx [OW]`` (integer source columns in ``[0, w)``),
+    ``fpx [OW]`` and ``fpy [OH]`` (host arrays) and put them on
+    ``device``, with the kernel's tile plan where that is a card."""
+    bx = np.asarray(bx)
+    fpx = np.asarray(fpx, np.float32)
+    fpy = np.asarray(fpy, np.float32)
+    if bx.ndim != 1 or fpx.shape != bx.shape or fpy.ndim != 1:
+        raise ValueError(f"xbr_epilogue: bx and fpx must be [OW] and fpy [OH], got {bx.shape}, {fpx.shape}, {fpy.shape}")
+    if not np.issubdtype(bx.dtype, np.integer) or (bx.size and (bx.min() < 0 or bx.max() >= w)):
+        raise ValueError(f"xbr_epilogue: bx must be integer source columns in [0, {w})")
+    device = torch.device(device)
+    if device.type not in ("cuda", "cpu"):
+        raise RuntimeError(f"xbr_epilogue: no kernel for device {device}")
+    m = EpilogueMaps()
+    m.w = int(w)
+    m.bx = torch.from_numpy(bx.astype(np.int32)).to(device)
+    m.fpx = torch.from_numpy(fpx).to(device)
+    m.fpy = torch.from_numpy(fpy).to(device)
+    m.tile_px = m.rows = m.max_n = m.general_tiles = 0
+    m.tile_lo = m.tile_n = None
+    if device.type == "cuda" and bx.size:
+        m.tile_px, m.rows, m.max_n, lo, n = _tile_plan(bx.astype(np.int64))
+        m.tile_lo = torch.from_numpy(lo).to(device)
+        m.tile_n = torch.from_numpy(n).to(device)
+        m.general_tiles = int((n == 0).sum())
+    return m
+
+
+# The kernel's constants (the ramp table, 64 floats, and 1/255), passed to
+# the launch from host memory and to the kernel by value.
+_CONSTANTS = np.ascontiguousarray(np.append(_ramp_table().reshape(-1), _INV255), np.float32)
+
+
+def _launch(S, m: EpilogueMaps):
     from retrocapture_tpu_torch.ops.cuda._build import load
 
-    global LAUNCHES
+    global LAUNCHES, _GENERAL_BLOCKS
     b, _, oh, w = S.shape
-    ow = bx.shape[0]
+    ow = m.bx.shape[0]
     dev = S.device
     out = torch.empty((b, oh, ow, 4), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
     rc = load("xbr_epilogue")(
-        S.data_ptr(), bx.data_ptr(), fpx.data_ptr(), fpy.data_ptr(), _table(dev).data_ptr(), out.data_ptr(),
-        b, oh, w, ow, torch.cuda.current_stream(dev).cuda_stream,
+        S.data_ptr(), m.bx.data_ptr(), m.fpx.data_ptr(), m.fpy.data_ptr(), m.tile_lo.data_ptr(),
+        m.tile_n.data_ptr(), _CONSTANTS.ctypes.data, out.data_ptr(),
+        b, oh, w, ow, m.tile_px, m.rows, m.max_n, torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"xbr_epilogue kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
+    _GENERAL_BLOCKS += m.general_tiles * -(-oh // m.rows) * b
     return out
 
 
-def xbr_epilogue(S, bx, fpx, fpy):
+def xbr_epilogue(S, bx, fpx=None, fpy=None):
     """``S [B, 19, OH, W]`` f32 (E, H, F, B, D x255 and 4 code planes),
     ``bx [OW]`` source column of each output column (host array, clamped
     to ``[0, W)``), ``fpx [OW]`` and ``fpy [OH]`` fract phases (host
-    arrays) → ``[B, OH, OW, 4]`` f32 on S's device. A CUDA tensor
+    arrays) → ``[B, OH, OW, 4]`` f32 on S's device. ``bx`` may be the
+    ``EpilogueMaps`` that ``prepare_maps`` made of the three for S's width
+    and device (then ``fpx`` and ``fpy`` are left out). A CUDA tensor
     launches the kernel; a CPU tensor takes the plain version."""
     if not isinstance(S, torch.Tensor) or S.dtype != torch.float32:
         raise TypeError(f"xbr_epilogue: S must be a float32 tensor, got {getattr(S, 'dtype', type(S))}")
     if S.dim() != 4 or S.shape[1] != _NCH:
         raise ValueError(f"xbr_epilogue: S must be [B, {_NCH}, OH, W], got {tuple(S.shape)}")
     _, _, oh, w = S.shape
-    bx = np.asarray(bx)
-    fpx = np.asarray(fpx, np.float32)
-    fpy = np.asarray(fpy, np.float32)
-    if bx.ndim != 1 or fpx.shape != bx.shape or fpy.shape != (oh,):
+    m = bx if isinstance(bx, EpilogueMaps) else prepare_maps(bx, fpx, fpy, w, S.device)
+    if m.w != w or m.fpy.shape != (oh,) or m.bx.device != S.device:
         raise ValueError(
-            f"xbr_epilogue: bx and fpx must be [OW] and fpy [{oh}], got {bx.shape}, {fpx.shape}, {fpy.shape}"
+            f"xbr_epilogue: maps for width {m.w}, {m.fpy.shape[0]} rows on {m.bx.device}; "
+            f"S is {tuple(S.shape)} on {S.device}"
         )
-    if not np.issubdtype(bx.dtype, np.integer) or (bx.size and (bx.min() < 0 or bx.max() >= w)):
-        raise ValueError(f"xbr_epilogue: bx must be integer source columns in [0, {w})")
-    if S.device.type not in ("cuda", "cpu"):
-        raise RuntimeError(f"xbr_epilogue: no kernel for device {S.device}")
-    dev = S.device
-    bx_t = torch.from_numpy(bx.astype(np.int32)).to(dev)
-    fpx_t = torch.from_numpy(fpx).to(dev)
-    fpy_t = torch.from_numpy(fpy).to(dev)
     if S.is_cuda:
-        return _launch(S.contiguous(), bx_t, fpx_t, fpy_t)
-    return xbr_epilogue_plain(S, bx_t, fpx_t, fpy_t)
+        return _launch(S.contiguous(), m)
+    return xbr_epilogue_plain(S, m.bx, m.fpx, m.fpy)

@@ -172,6 +172,7 @@ class Engine:
             return False
         meta = self._program.parameters[name]
         self._custom_params[name] = float(np.clip(value, meta.minimum, meta.maximum))
+        self._program.kernel_cache.clear()
         return True
 
     def get_parameter(self, name: str) -> Optional[float]:
@@ -214,6 +215,8 @@ class Engine:
 
     def set_viewport(self, width: int, height: int) -> None:
         self._viewport = (int(width), int(height))
+        if self._program is not None:
+            self._program.kernel_cache.clear()
 
     def reset_state(self) -> None:
         self._states.clear()

@@ -9,7 +9,10 @@ varyings TEX0..TEX7 (the texel-centre coordinate and the t1..t7 tap
 rows and columns of the upstream shader). So a one-pass preset naming a
 shader of that basename, with those parameters, that vertex stage and a
 passthrough fragment, drives the full xbr-lv2 computation in both
-engines. ``filter_linear=True`` writes a preset the kernel declines.
+engines. ``filter_linear=True`` writes a preset the kernel declines;
+``reads_frame_count=True`` writes (into a directory of its own) the same
+shader with a vertex stage that reads FrameCount, adding ``0.0 *
+FrameCount`` to TEX0: the same varyings, but frame state in the stage.
 """
 
 import os
@@ -41,6 +44,8 @@ void main() { gl_FragColor = texture2D(Texture, TEX0); }
 #endif
 """
 
+_TEX0 = "TEX0 = TexCoord.xy * 1.0001;"
+
 STANDIN_GLSLP = """shaders = 1
 shader0 = xbr-lv2.glsl
 filter_linear0 = {linear}
@@ -48,11 +53,19 @@ scale_type0 = viewport
 """
 
 
-def write_standin(directory, filter_linear: bool = False) -> str:
-    """Write xbr-lv2.glsl and its preset into ``directory``; the preset's
+def write_standin(directory, filter_linear: bool = False, reads_frame_count: bool = False) -> str:
+    """Write xbr-lv2.glsl and its preset into ``directory`` (into its
+    ``framecount`` subdirectory with ``reads_frame_count``); the preset's
     path."""
+    glsl = STANDIN_GLSL
+    if reads_frame_count:
+        directory = os.path.join(directory, "framecount")
+        os.makedirs(directory, exist_ok=True)
+        glsl = glsl.replace("uniform vec2 TextureSize;", "uniform vec2 TextureSize; uniform int FrameCount;")
+        glsl = glsl.replace(_TEX0, _TEX0[:-1] + " + vec2(0.0 * float(FrameCount));")
+        assert "float(FrameCount)" in glsl
     with open(os.path.join(directory, "xbr-lv2.glsl"), "w") as f:
-        f.write(STANDIN_GLSL)
+        f.write(glsl)
     name = "xbr-lv2-linear.glslp" if filter_linear else "xbr-lv2.glslp"
     path = os.path.join(directory, name)
     with open(path, "w") as f:

@@ -278,3 +278,271 @@ def test_xphase_kernel_equals_dense_and_plain_at_edges(cuda_device, w, r, c, y_i
     assert torch.equal(got, rs.resample_u8(t, ay, ax))
     ytaps = None if ay is None else tuple(torch.from_numpy(x).to(cuda_device) for x in rs.axis_taps(ay))
     assert torch.equal(got, rs.resample_u8_xphase_plain(t, ytaps, plan))
+
+
+# -- the redesigned blit kernel -------------------------------------------------
+
+
+def _knife_tex(rng, shape):
+    """Half of the texels on the u8 grid n/255, a share of those one ulp to
+    either side; the rest uniform in [-0.1, 1.1]."""
+    grid = (rng.integers(0, 256, size=shape) / 255.0).astype(np.float32)
+    nudge = rng.integers(-1, 2, size=shape)
+    grid = np.where(nudge < 0, np.nextafter(grid, np.float32(-1)), np.where(nudge > 0, np.nextafter(grid, np.float32(2)), grid))
+    return np.where(rng.random(shape) < 0.5, grid, rng.random(shape) * 1.2 - 0.1).astype(np.float32)
+
+
+def _two_tap(t, ay, ax):
+    """The blit as the kernel sums it, in torch on t's device: per axis
+    ``w0*t0 + w1*t1`` over the row's two nonzeros, each product and the sum
+    rounded apart (eager torch does not contract), y first; then the pack."""
+    for axis, a in ((1, ay), (2, ax)):
+        if a is None:
+            continue
+        i0, w0, i1, w1 = (torch.from_numpy(x).to(t.device) for x in rs.axis_taps(a))
+        shape = (1, -1, 1, 1) if axis == 1 else (1, 1, -1, 1)
+        t = w0.reshape(shape) * t.index_select(axis, i0.long()) + w1.reshape(shape) * t.index_select(axis, i1.long())
+    return rs._quantize_u8(t)
+
+
+def _truth_gate(tex, got, ay, ax):
+    """Within 1 step of the f64 blit and exact off its knife edges."""
+    t64 = torch.from_numpy(tex).double()
+    if ay is not None:
+        t64 = torch.einsum("os,bshc->bohc", torch.from_numpy(ay).double(), t64)
+    if ax is not None:
+        t64 = torch.einsum("pt,botc->bopc", torch.from_numpy(ax).double(), t64)
+    scaled = (t64.clamp(0.0, 1.0) * 255.0).numpy()
+    edge = np.abs(scaled - np.floor(scaled) - 0.5) < 1e-4
+    diff = np.abs(got.astype(np.int32) - np.round(scaled).astype(np.int32))
+    assert diff.max() <= 1 and (diff[~edge] == 0).all()
+
+
+# (batch, src_h, src_w, dst_h, dst_w, channels)
+BLIT_EDGES = [
+    pytest.param(2, 60, 80, 135, 480, 1, id="c1"),
+    pytest.param(2, 60, 80, 135, 480, 2, id="c2"),
+    pytest.param(2, 60, 80, 135, 480, 3, id="c3"),
+    pytest.param(2, 60, 80, 135, 480, 4, id="c4"),
+    pytest.param(3, 7, 9, 11, 20, 3, id="below-a-tile"),
+    pytest.param(3, 50, 37, 71, 333, 3, id="ow-333"),
+    pytest.param(1, 120, 320, 90, 1077, 3, id="ow-1077"),
+    pytest.param(1, 50, 37, 71, 333, 1, id="ow-333-c1"),
+    pytest.param(1, 1080, 1920, 360, 640, 3, id="downscale-3"),
+    pytest.param(3, 540, 960, 100, 100, 4, id="downscale-9.6-c4"),
+    pytest.param(1, 224, 256, 1080, 1920, 3, id="snes-r7.5"),
+    pytest.param(3, 60, 80, 270, 80, 3, id="y-only"),
+    pytest.param(3, 60, 80, 60, 480, 3, id="x-only"),
+    pytest.param(1, 60, 80, 60, 333, 2, id="x-only-ragged"),
+    pytest.param(1, 240, 320, 1080, 1920, 3, id="b1-r6"),
+    pytest.param(3, 48, 64, 144, 256, 3, id="b3-r4"),
+    pytest.param(2, 270, 480, 270, 480, 3, id="near-identity"),
+]
+
+
+@pytest.mark.parametrize("b,h,w,oh,ow,c", BLIT_EDGES)
+def test_resample_kernel_at_edges(cuda_device, b, h, w, oh, ow, c):
+    rng = np.random.default_rng(h + w + oh + ow + c)
+    ay, ax = rs.blit_matrices(h, w, ow, oh)  # None for an identity axis
+    tex = _knife_tex(rng, (b, h, w, c))
+    t = torch.from_numpy(tex).to(cuda_device)
+    rs.general_blocks(reset=True)
+    before = rs.LAUNCHES
+    got = rs.resample_u8(t, ay, ax)
+    assert rs.LAUNCHES == before + 1 and rs.general_blocks(reset=True) == 0
+    assert got.shape == (b, oh, ow, c) and got.dtype == torch.uint8
+    assert torch.equal(got, _two_tap(t, ay, ax))
+    _truth_gate(tex, got.cpu().numpy(), ay, ax)
+    plain = rs.resample_u8_plain(t, *(None if a is None else torch.from_numpy(a).to(cuda_device) for a in (ay, ax)))
+    _truth_gate(tex, plain.cpu().numpy(), ay, ax)
+    assert torch.equal(rs.resample_u8(t[0], ay, ax), got[0])  # [H, W, C] in, [OH, OW, C] out
+    plan = None if ax is None else rs._xphase_plan(ax, w, ow)
+    if plan is not None:
+        assert torch.equal(got, rs.resample_u8_xphase(t, ay, plan))
+
+
+def test_resample_kernel_special_values(cuda_device):
+    """NaN, +-inf and out-of-range texels: what the 2-tap sums give (NaN
+    stores 0, also 0 * inf), byte for byte."""
+    rng = np.random.default_rng(77)
+    tex = _knife_tex(rng, (2, 48, 64, 3))
+    tex[0, 3, 5] = np.nan
+    tex[0, 7, 9] = np.inf
+    tex[1, 2, 2] = -np.inf
+    tex[1, 40, 60:] = [[5.0, -3.0, 1.0]]
+    tex[0, 20, 30:32, 1] = [np.inf, -np.inf]  # inf - inf between neighbours
+    t = torch.from_numpy(tex).to(cuda_device)
+    for vw, vh in ((250, 144), (256, 144), (64, 144), (250, 48), (21, 16)):
+        ay, ax = rs.blit_matrices(48, 64, vw, vh)
+        got = rs.resample_u8(t, ay, ax)
+        assert torch.equal(got, _two_tap(t, ay, ax)), (vw, vh)
+    assert int(got.max()) == 255 and int(got.min()) == 0
+
+
+def test_resample_kernel_general_path(cuda_device):
+    """A caller's matrix whose taps lie thousands of columns apart: the
+    segments read from global memory in the same kernel, counted, and give
+    the same bytes."""
+    rng = np.random.default_rng(78)
+    idx = np.arange(300)
+    ax = np.zeros((300, 4000), np.float32)
+    ax[idx, (idx * 13) % 4000] = 0.25
+    ax[idx, 3999 - (idx * 7) % 2000] += 0.75
+    ay, _ = rs.blit_matrices(20, 4000, 300, 45)
+    for c in (1, 3, 4):
+        t = torch.from_numpy(_knife_tex(rng, (2, 20, 4000, c))).to(cuda_device)
+        for a in (ay, None):
+            rs.general_blocks(reset=True)
+            got = rs.resample_u8(t, a, ax)
+            assert rs.general_blocks(reset=True) > 0
+            assert torch.equal(got, _two_tap(t, a, ax))
+    with pytest.raises(ValueError):
+        rs.resample_u8(torch.zeros((1, 4, 4, 5), device=cuda_device), None, _blit_axes(4, 8))
+
+
+def test_blit_u8_cache_on_the_card(cuda_device, monkeypatch):
+    rng = np.random.default_rng(79)
+    t = torch.from_numpy(_knife_tex(rng, (3, 60, 80, 3))).to(cuda_device)
+    rs.clear_blit_cache()
+    for vw, vh in ((480, 270), (333, 270), (480, 270), (80, 60), (480, 60)):
+        ay, ax = rs.blit_matrices(60, 80, vw, vh)
+        before = rs.LAUNCHES
+        got = rs.blit_u8(t, vw, vh)
+        if ay is None and ax is None:
+            assert rs.LAUNCHES == before and torch.equal(got, rs._quantize_u8(t))
+            continue
+        assert rs.LAUNCHES == before + 1
+        assert torch.equal(got, rs.resample_u8(t, ay, ax))
+        assert torch.equal(rs.blit_u8(t[..., :1].contiguous(), vw, vh), got[..., :1])  # another C, same plan
+    assert len(rs._BLIT_CACHE) == 4
+    monkeypatch.setenv("RCTPU_XPHASE", "on")
+    before = rs.XPHASE_LAUNCHES
+    assert torch.equal(rs.blit_u8(t, 480, 270), rs.resample_u8(t, *rs.blit_matrices(60, 80, 480, 270)))
+    assert torch.equal(rs.blit_u8(t, 480, 270), rs.blit_u8(t.cpu(), 480, 270).to(cuda_device))
+    assert rs.XPHASE_LAUNCHES == before + 2
+
+
+# -- the redesigned xbr epilogue kernel -------------------------------------------
+
+
+def _xbr_S(rng, b, oh, w):
+    """Colours 0..255 and, spread over the planes, every code 0..31."""
+    code = rng.integers(0, 32, (b, 4, oh, w))
+    code.reshape(-1)[:32] = np.arange(32)
+    return np.concatenate([rng.integers(0, 256, (b, 15, oh, w)), code], axis=1).astype(np.float32)
+
+
+# (batch, oh, w, ow, bx kind)
+XBR_EDGES = [
+    pytest.param(1, 1080, 320, 1920, "nearest", id="main-r6"),
+    pytest.param(2, 48, 64, 128, "nearest", id="r2"),
+    pytest.param(2, 30, 40, 120, "nearest", id="r3"),
+    pytest.param(3, 270, 80, 480, "nearest", id="r6-batch3"),
+    pytest.param(1, 100, 256, 1920, "nearest", id="r7.5"),
+    pytest.param(2, 144, 64, 250, "nearest", id="non-integer"),
+    pytest.param(2, 37, 20, 45, "nearest", id="below-a-tile"),
+    pytest.param(1, 33, 100, 300, "nearest", id="ow-300"),
+    pytest.param(2, 50, 300, 700, "random", id="non-monotone"),
+    pytest.param(1, 40, 64, 640, "reversed", id="reversed"),
+    pytest.param(1, 60, 1920, 640, "nearest", id="downscale"),
+]
+
+
+@pytest.mark.parametrize("b,oh,w,ow,kind", XBR_EDGES)
+def test_xbr_epilogue_kernel_at_edges(cuda_device, b, oh, w, ow, kind):
+    rng = np.random.default_rng(oh + w + ow)
+    S = torch.from_numpy(_xbr_S(rng, b, oh, w)).to(cuda_device)
+    bx = (np.arange(ow) * w) // ow
+    if kind == "random":
+        bx = rng.integers(0, w, ow)
+    elif kind == "reversed":
+        bx = bx[::-1].copy()
+    bx = bx.astype(np.int32)
+    fpx = ((np.arange(ow) + 0.5) / ow * w % 1.0).astype(np.float32)
+    fpy = rng.random(oh).astype(np.float32)
+    maps = xe.prepare_maps(bx, fpx, fpy, w, cuda_device)
+    xe.general_blocks(reset=True)
+    before = xe.LAUNCHES
+    got = xe.xbr_epilogue(S, maps)
+    assert xe.LAUNCHES == before + 1
+    general = xe.general_blocks(reset=True)
+    assert general == (0 if kind != "nearest" or ow >= w else maps.general_tiles * -(-oh // maps.rows) * b)
+    if kind == "nearest" and ow < w:
+        assert general > 0
+    want = xe.xbr_epilogue_plain(S, maps.bx, maps.fpx, maps.fpy)
+    assert got.shape == (b, oh, ow, 4) and torch.equal(got, want)
+    assert torch.equal(got, xe.xbr_epilogue(S, bx, fpx, fpy))  # the three arrays: the same launch
+    with pytest.raises(ValueError):
+        xe.xbr_epilogue(S.cpu(), maps)  # maps on another device
+
+
+def test_xbr_epilogue_kernel_general_path(cuda_device):
+    """A bx scattered over 3000 columns: no tile's range fits shared memory,
+    every block reads S from global memory, counted; the same bits."""
+    rng = np.random.default_rng(80)
+    b, oh, w, ow = 2, 50, 3000, 700
+    S = torch.from_numpy(_xbr_S(rng, b, oh, w)).to(cuda_device)
+    bx = rng.integers(0, w, ow).astype(np.int32)
+    fpx, fpy = rng.random(ow).astype(np.float32), rng.random(oh).astype(np.float32)
+    maps = xe.prepare_maps(bx, fpx, fpy, w, cuda_device)
+    assert maps.max_n == 0 and maps.general_tiles == len(maps.tile_n)
+    xe.general_blocks(reset=True)
+    got = xe.xbr_epilogue(S, maps)
+    assert xe.general_blocks(reset=True) == maps.general_tiles * -(-oh // maps.rows) * b
+    assert torch.equal(got, xe.xbr_epilogue_plain(S, maps.bx, maps.fpx, maps.fpy))
+
+
+def test_xbr_slice_keeps_its_maps_on_the_card(cuda_device, tmp_path):
+    path = write_xbr_standin(str(tmp_path))
+    frames = torch.from_numpy(np.random.default_rng(5).integers(0, 256, (4, 60, 80, 3), dtype=np.uint8))
+    e = torch_pkg.Engine(viewport=(480, 270), device=cuda_device)
+    assert e.load_preset(path), e.last_error
+    xe.general_blocks(reset=True)
+    first = e.apply(frames.to(cuda_device), output="u8")
+    (geo,) = e._program.kernel_cache.values()
+    again = e.apply(frames.to(cuda_device), output="u8")
+    assert list(e._program.kernel_cache.values())[0] is geo and xe.general_blocks() == 0
+    cpu = torch_pkg.Engine(viewport=(480, 270), device="cpu")
+    assert cpu.load_preset(path)
+    want = cpu.apply(frames, output="u8")
+    assert torch.equal(first.cpu(), want) and torch.equal(again.cpu(), want)
+    e.set_viewport(320, 240)
+    assert e._program.kernel_cache == {}
+    cpu.set_viewport(320, 240)
+    assert torch.equal(e.apply(frames.to(cuda_device), output="u8").cpu(), cpu.apply(frames, output="u8"))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_resample_kernel_random_geometries(cuda_device, seed):
+    """Random sizes, ratios (up and down), channel counts and batches, 25 a
+    seed: the kernel's bytes are the 2-tap sums' at every one."""
+    rng = np.random.default_rng(1000 + seed)
+    for _ in range(25):
+        b, c = int(rng.integers(1, 4)), int(rng.integers(1, 5))
+        h, w, oh, ow = (int(v) for v in rng.integers(1, 420, 4))
+        if rng.random() < 0.2:
+            oh = h
+        if rng.random() < 0.2:
+            ow = w
+        ay = None if oh == h else _blit_axes(h, oh)
+        ax = None if ow == w else _blit_axes(w, ow)
+        t = torch.from_numpy(_knife_tex(rng, (b, h, w, c))).to(cuda_device)
+        rs.general_blocks(reset=True)
+        got = rs.resample_u8(t, ay, ax)
+        assert rs.general_blocks() == 0, (b, h, w, oh, ow, c)
+        assert got.shape == (b, oh, ow, c)
+        assert torch.equal(got, _two_tap(t, ay, ax)), (b, h, w, oh, ow, c)
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_xbr_epilogue_kernel_random_geometries(cuda_device, seed):
+    rng = np.random.default_rng(2000 + seed)
+    for _ in range(15):
+        b = int(rng.integers(1, 4))
+        oh, w, ow = (int(v) for v in rng.integers(1, 500, 3))
+        S = torch.from_numpy(_xbr_S(rng, b, oh, w)).to(cuda_device)
+        bx = ((np.arange(ow) * w) // ow if rng.random() < 0.7 else rng.integers(0, w, ow)).astype(np.int32)
+        fpx, fpy = rng.random(ow).astype(np.float32), rng.random(oh).astype(np.float32)
+        maps = xe.prepare_maps(bx, fpx, fpy, w, cuda_device)
+        got = xe.xbr_epilogue(S, maps)
+        assert torch.equal(got, xe.xbr_epilogue_plain(S, maps.bx, maps.fpx, maps.fpy)), (b, oh, w, ow)

@@ -269,3 +269,140 @@ def test_engine_blit_takes_xphase_when_the_last_pass_is_source_sized(monkeypatch
     # The shipped preset's blit is 1080p -> 1080p-like (r = 1): no phase plan.
     ay, ax = rs.blit_matrices(144, 256, 256, 144)
     assert ax is None or rs._xphase_plan(ax, 256, 256) is None
+
+
+# -- the blit cache and the kernel's host-side plan ---------------------------
+
+# (h, w, vw, vh): more geometries than the cache holds, one of them
+# revisited (first, in the middle, and after it has been pushed out).
+_SEQ_FIRST = (12, 16, 96, 54)
+BLIT_SEQUENCE = (
+    [_SEQ_FIRST, (12, 16, 64, 54), (16, 12, 96, 54), _SEQ_FIRST, (12, 16, 12 * 4, 16)]
+    + [(10 + k, 14, 40 + k, 33) for k in range(rs._BLIT_CACHE_MAX)]
+    + [_SEQ_FIRST, (12, 16, 16, 12)]
+)
+
+
+def test_blit_cache_sequence_equals_uncached_and_jax():
+    """blit_u8 through its cache over a sequence of geometries: each
+    result is bit-equal to blit_u8 with the cache cleared first, and holds
+    the JAX blit_u8 to this file's criterion (within 1 step, exact off the
+    f64 knife edges); the cache stays bounded and the revisited geometry
+    is found again."""
+    rng = np.random.default_rng(41)
+    rs.clear_blit_cache()
+    through = []
+    texes = []
+    for h, w, vw, vh in BLIT_SEQUENCE:
+        tex = _mk_tex(rng, h, w)
+        texes.append(tex)
+        through.append(rs.blit_u8(torch.from_numpy(tex), vw, vh).numpy())
+        assert len(rs._BLIT_CACHE) <= rs._BLIT_CACHE_MAX
+    assert len(rs._BLIT_CACHE) == rs._BLIT_CACHE_MAX
+    assert (*_SEQ_FIRST, "cpu") in rs._BLIT_CACHE
+    for (h, w, vw, vh), tex, got in zip(BLIT_SEQUENCE, texes, through):
+        rs.clear_blit_cache()
+        np.testing.assert_array_equal(got, rs.blit_u8(torch.from_numpy(tex), vw, vh).numpy())
+        assert len(rs._BLIT_CACHE) == 1
+        want = np.asarray(jax_blit_u8(tex, vw, vh))
+        assert got.shape == want.shape == (vh, vw, 3)
+        q64, edge = _truth(tex, *rs.blit_matrices(h, w, vw, vh))
+        d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+        assert d.max() <= 1 and (d[~edge] == 0).all()
+
+
+def test_blit_cache_keys_and_lru_order():
+    rs.clear_blit_cache()
+    a = rs._blit_plan(12, 16, 96, 54, torch.device("cpu"))
+    assert rs._blit_plan(12, 16, 96, 54, "cpu") is a  # a device and its name: one key
+    assert rs._blit_plan(12, 16, 96, 55, "cpu") is not a
+    assert rs._blit_plan(16, 12, 96, 54, "cpu") is not a
+    assert rs._blit_plan(12, 16, 96, 54, "meta") is not a
+    assert len(rs._BLIT_CACHE) == 4
+    for k in range(rs._BLIT_CACHE_MAX - 1):
+        rs._blit_plan(12, 16, 200 + k, 54, "cpu")
+        rs._blit_plan(12, 16, 96, 54, "cpu")  # used again: stays
+    assert rs._blit_plan(12, 16, 96, 54, "cpu") is a
+    assert (12, 16, 96, 55, "cpu") not in rs._BLIT_CACHE
+    # The plan's parts are the uncached functions' results.
+    ay, ax = rs.blit_matrices(12, 16, 96, 54)
+    np.testing.assert_array_equal(a.ay, ay)
+    np.testing.assert_array_equal(a.ax, ax)
+    for got, want in zip(a.ytaps, rs.axis_taps(ay)):
+        np.testing.assert_array_equal(got.numpy(), want)
+    plan, tables = a.xphase
+    assert tables is None and plan[0] == 6
+    for got, want in zip(plan[2:], rs._xphase_plan(ax, 16, 96)[2:]):
+        np.testing.assert_array_equal(got, want)
+    identity = rs._blit_plan(12, 16, 16, 12, "cpu")
+    assert identity.ay is None and identity.ax is None and identity.xphase is None
+    rs.clear_blit_cache()
+    assert len(rs._BLIT_CACHE) == 0
+
+
+# (src_w, dst_w, channels, has_y): upscales, the identity x axis, a
+# downscale and a wide downscale whose segments must narrow.
+SEG_PLANS = [
+    pytest.param(320, 1920, 3, True, id="r6"),
+    pytest.param(256, 1920, 3, True, id="r7.5"),
+    pytest.param(1920, 1920, 3, True, id="near-identity"),
+    pytest.param(37, 333, 1, True, id="ragged"),
+    pytest.param(1920, 640, 4, True, id="down-3"),
+    pytest.param(3840, 100, 4, False, id="down-38"),
+    pytest.param(64, None, 2, True, id="x-identity"),
+]
+
+
+@pytest.mark.parametrize("w,ow,c,has_y", SEG_PLANS)
+def test_seg_plan_covers_every_tap_within_the_budget(w, ow, c, has_y):
+    xt = None if ow is None else rs.axis_taps(_blit_axes(w, ow))
+    ow = w if ow is None else ow
+    seg_px, lo, n, cap = rs._seg_plan(xt, ow, c, has_y)
+    assert seg_px in rs._SEG_WIDTHS and len(lo) == len(n) == -(-ow // seg_px)
+    assert (n > 0).all(), "a blit geometry must not need the general path"
+    assert cap % 4 == 0 and cap >= int(n.max()) * rs._PADDED[c]
+    per_warp = (3 if has_y else 2) * 4 * cap + rs._SEG_MAX * c + 16
+    assert per_warp * rs._WARPS <= rs._SHARED_BUDGET
+    for s in range(len(lo)):
+        cols = np.arange(s * seg_px, min(ow, (s + 1) * seg_px))
+        taps = cols if xt is None else np.concatenate([xt[0][cols], xt[2][cols]])
+        assert lo[s] <= taps.min() and taps.max() < lo[s] + n[s]
+        assert lo[s] >= 0 and lo[s] + n[s] <= w
+
+
+def test_seg_plan_sends_scattered_taps_to_the_general_path():
+    """A caller's own matrix whose two taps lie thousands of columns apart:
+    no segment width fits, so (nearly) every segment is marked for global
+    memory."""
+    idx = np.arange(300)
+    ax = np.zeros((300, 4000), np.float32)
+    ax[idx, (idx * 13) % 4000] = 0.25
+    ax[idx, 3999 - (idx * 7) % 2000] += 0.75
+    seg_px, lo, n, cap = rs._seg_plan(rs.axis_taps(ax), 300, 3, True)
+    assert seg_px == rs._SEG_WIDTHS[-1] and (n == 0).mean() > 0.8
+    assert cap == int(n.max()) * rs._PADDED[3]  # of the few segments that still fit
+    # and the plain version still computes it on the CPU
+    tex = torch.from_numpy(_mk_tex(np.random.default_rng(2), 5, 4000))
+    assert rs.resample_u8(tex, None, ax).shape == (5, 300, 3)
+    with pytest.raises(ValueError):
+        rs.axis_taps(np.ones((2, 3), np.float32))
+
+
+def test_general_blocks_counter_resets():
+    before = rs.general_blocks()
+    assert rs.general_blocks(reset=True) == before
+    assert rs.general_blocks() == 0
+
+
+def test_dense_tables_send_even_spaced_y_taps_to_the_general_path():
+    """The kernel keeps source row r in slot r & 1, so a y matrix with a
+    row whose taps lie 2 rows apart cannot use the shared-memory scheme:
+    every segment is marked for global memory. Blit matrices never are."""
+    ay = np.zeros((6, 8), np.float32)
+    ay[np.arange(6), np.arange(6)] = 0.5
+    ay[np.arange(6), np.arange(6) + 2] = 0.5
+    d = rs._dense_tables(ay, _blit_axes(16, 96), 8, 16, 3, "cpu")
+    assert d.general_segs == d.seg_n.shape[0] and d.cap == 0 and int(d.seg_n.max()) == 0
+    for h, oh in ((240, 1080), (1080, 360), (224, 1080), (48, 47)):
+        d = rs._dense_tables(_blit_axes(h, oh), _blit_axes(16, 96), h, 16, 3, "cpu")
+        assert d.general_segs == 0 and d.cap > 0

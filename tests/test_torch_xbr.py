@@ -28,6 +28,13 @@ through both engines, on the CPU. The JAX side runs under
    1e-6 outside 1e-3 of values; measured: bit-equal in every case. A
    ``filter_linear0 = true`` preset is declined by both kernels, and the
    evaluators' passthrough outputs agree within the same tolerance.
+6. The axis maps kept per geometry: the port builds ``_xbr_axis_maps``
+   once per (pass, source size, output size) while parameters and viewport
+   stand. At batch 4 the slice stays bit-equal to the JAX engine with the
+   maps from the cache, after ``set_viewport`` to another size and back,
+   and after ``set_parameter("small_details", 1)``; the kept maps are the
+   arrays a fresh build gives; a vertex stage that reads FrameCount is
+   rebuilt per frame. Tolerance: bit-equal.
 """
 
 import tempfile
@@ -231,9 +238,9 @@ def test_front_section_S_equals_reference(standin, monkeypatch, dtype, small):
         jax.debug.callback(lambda s: jS.append(np.asarray(s)), S)
         return orig_j(S, bx, fpx, fpy, interpret=interpret)
 
-    def tspy(S, bx, fpx, fpy):
+    def tspy(S, *maps):
         tS.append(S[0].numpy().copy())
-        return orig_t(S, bx, fpx, fpy)
+        return orig_t(S, *maps)
 
     monkeypatch.setattr(jxe, "xbr_epilogue", jspy)
     monkeypatch.setattr(xe, "xbr_epilogue", tspy)
@@ -295,3 +302,193 @@ def test_filter_linear_preset_declined_by_both(standin, monkeypatch):
 
 def test_registry_entry():
     assert tk.find_kernel("/any/dir/xbr-lv2.glsl") is tk._xbr_lv2_kernel
+
+
+# -- 6. the axis maps kept per geometry ---------------------------------------
+
+
+def _count_map_builds(monkeypatch):
+    """Count the port's calls of _xbr_axis_maps (the per-geometry build)."""
+    real = tk._xbr_axis_maps
+    builds = []
+
+    def counted(*a, **k):
+        builds.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(tk, "_xbr_axis_maps", counted)
+    return builds
+
+
+def _port_engine(path, viewport):
+    e = torch_pkg.Engine(viewport=viewport, device="cpu")
+    assert e.load_preset(path), e.last_error
+    return e
+
+
+def _apply(e, frames):
+    out = e.apply(_t(frames), output="u8").numpy()
+    assert e.shader_active is True and e.last_error is None
+    return out
+
+
+def test_slice_bit_equal_to_jax_with_cached_maps(standin, monkeypatch):
+    frames = _frames(31, 4, SRC_HW)
+    other = (320, 240)
+    want = {
+        (vp, small): _jax_run(standin[0], vp, frames, "u8", small, monkeypatch)[0]
+        for vp, small in ((VIEWPORT, 0.0), (other, 0.0), (VIEWPORT, 1.0))
+    }
+    builds = _count_map_builds(monkeypatch)
+    e = _port_engine(standin[0], VIEWPORT)
+    np.testing.assert_array_equal(_apply(e, frames), want[VIEWPORT, 0.0])
+    assert len(builds) == 1  # 4 frames, one build
+    np.testing.assert_array_equal(_apply(e, frames), want[VIEWPORT, 0.0])
+    assert len(builds) == 1  # a second apply: from the cache
+    e.set_viewport(*other)
+    assert e._program.kernel_cache == {}
+    np.testing.assert_array_equal(_apply(e, frames), want[other, 0.0])
+    e.set_viewport(*VIEWPORT)
+    np.testing.assert_array_equal(_apply(e, frames), want[VIEWPORT, 0.0])
+    assert len(builds) == 3
+    assert e.set_parameter("small_details", 1.0)
+    assert e._program.kernel_cache == {}
+    np.testing.assert_array_equal(_apply(e, frames), want[VIEWPORT, 1.0])
+    assert len(builds) == 4
+    assert (want[VIEWPORT, 1.0] != want[VIEWPORT, 0.0]).any()
+    # Another source size is another key; both stay.
+    _apply(e, _frames(32, 1, (48, 64)))
+    assert len(builds) == 5 and len(e._program.kernel_cache) == 2
+    # The cache goes with the program.
+    assert e.load_preset(standin[0]) and e._program.kernel_cache == {}
+    e.unload()
+    assert e._program is None
+
+
+def test_cached_maps_are_the_fresh_build(standin, monkeypatch):
+    """What the cache holds equals what _xbr_axis_maps gives anew."""
+    fresh = []
+    wrapped, _ = _spy(tk._REGISTRY, tk, fresh)
+    monkeypatch.setitem(tk._REGISTRY, NAME, wrapped)
+    e = _port_engine(standin[0], VIEWPORT)
+    _apply(e, _frames(33, 2, SRC_HW))
+    (key, (gathers, maps)), = e._program.kernel_cache.items()
+    assert key[:6] == ("xbr-lv2", 0, SRC_HW[1], SRC_HW[0], VIEWPORT[0], VIEWPORT[1])
+    bx, fpx, _, _, fpy, ty = fresh[-1]
+    np.testing.assert_array_equal(maps.bx.numpy(), np.clip(bx, 0, SRC_HW[1] - 1))
+    np.testing.assert_array_equal(maps.fpx.numpy(), fpx)
+    np.testing.assert_array_equal(maps.fpy.numpy(), fpy)
+    for k in (-2, -1, 0, 1, 2):
+        np.testing.assert_array_equal(gathers[1][k].numpy(), np.clip(ty[k], 0, SRC_HW[0] - 1))
+
+
+def test_vertex_stage_reading_frame_count_is_not_cached(standin, monkeypatch, tmp_path):
+    """A vertex stage that reads FrameCount: its varyings are frame state
+    (the corner run sees a tensor, so the hand kernel declines in both
+    engines), the geometry is derived anew for every frame and nothing is
+    kept. The stand-in's own stage with caching switched off gives the
+    cached run's bytes."""
+    frames = _frames(34, 3, SRC_HW)
+    builds = _count_map_builds(monkeypatch)
+    e = _port_engine(standin[0], VIEWPORT)
+    assert e._program.passes[0].vertex_static is True
+    cached = _apply(e, frames)
+    assert len(builds) == 1 and len(e._program.kernel_cache) == 1
+    plain = _port_engine(standin[0], VIEWPORT)
+    plain._program.passes[0].vertex_static = False
+    np.testing.assert_array_equal(_apply(plain, frames), cached)
+    assert len(builds) == 1 + 3 and plain._program.kernel_cache == {}
+
+    path = write_standin(str(tmp_path), reads_frame_count=True)
+    moving = _port_engine(path, VIEWPORT)
+    assert moving._program.passes[0].vertex_static is False
+    got = _apply(moving, frames)
+    assert len(builds) == 4 + 3  # derived for each frame
+    assert moving._program.kernel_cache == {}
+    want, jcalls = _jax_run(path, VIEWPORT, frames, "u8", 0.0, monkeypatch)
+    assert jcalls and not any(jcalls)
+    _close(want, got, "u8")
+
+
+@pytest.mark.parametrize(
+    "vertex,static",
+    [
+        ("uniform int FrameCount; void main() { gl_Position = MVPMatrix * VertexCoord; TEX0 = TexCoord.xy; }", True),
+        ("uniform int FrameCount; void main() { gl_Position = MVPMatrix * VertexCoord; "
+         "TEX0 = TexCoord.xy + vec2(float(FrameCount)); }", False),
+        ("uniform int FrameCount; float t() { return float(FrameCount); } void main() { "
+         "gl_Position = MVPMatrix * VertexCoord; TEX0 = TexCoord.xy * t(); }", False),
+        ("uniform sampler2D Texture; void main() { gl_Position = MVPMatrix * VertexCoord; "
+         "TEX0 = texture2D(Texture, TexCoord.xy).xy; }", False),
+    ],
+    ids=["declared-only", "read-in-main", "read-in-helper", "sampler"],
+)
+def test_vertex_is_static_reads_the_stage(tmp_path, vertex, static):
+    src = (
+        "#if defined(VERTEX)\nattribute vec4 VertexCoord; attribute vec4 TexCoord; varying vec2 TEX0; "
+        f"uniform mat4 MVPMatrix; {vertex}\n"
+        "#elif defined(FRAGMENT)\nvarying vec2 TEX0; uniform sampler2D Texture; "
+        "void main() { gl_FragColor = texture2D(Texture, TEX0); }\n#endif\n"
+    )
+    (tmp_path / "probe.glsl").write_text(src)
+    (tmp_path / "probe.glslp").write_text("shaders = 1\nshader0 = probe.glsl\n")
+    e = torch_pkg.Engine(viewport=(32, 24), device="cpu")
+    assert e.load_preset(str(tmp_path / "probe.glslp")), e.last_error
+    assert e._program.passes[0].vertex_static is static
+
+
+# -- 7. the epilogue's prepared maps and tile plan ----------------------------
+
+TILE_PLANS = [
+    pytest.param(320, 1920, "nearest", id="r6-main"),
+    pytest.param(64, 250, "nearest", id="non-integer"),
+    pytest.param(20, 45, "nearest", id="below-a-tile"),
+    pytest.param(300, 700, "random", id="non-monotone"),
+    pytest.param(3000, 700, "random", id="scattered"),
+    pytest.param(1920, 640, "nearest", id="downscale"),
+]
+
+
+@pytest.mark.parametrize("w,ow,kind", TILE_PLANS)
+def test_tile_plan_covers_bx_within_the_budget(w, ow, kind):
+    if kind == "random":
+        bx = np.random.default_rng(w).integers(0, w, ow)
+    else:
+        bx = (np.arange(ow) * w) // ow
+    tile_px, rows, max_n, lo, n = xe._tile_plan(bx.astype(np.int64))
+    assert tile_px % 32 == 0 and 32 <= tile_px <= 256 and 1 <= rows <= xe._ROWS_MAX
+    assert len(lo) == len(n) == -(-ow // tile_px) and max_n == n.max()
+    assert rows * max_n * xe._TEXEL_BYTES <= xe._SHARED_BUDGET
+    for t in range(len(lo)):
+        cols = bx[t * tile_px : (t + 1) * tile_px]
+        assert lo[t] == cols.min()
+        span = cols.max() - cols.min() + 1
+        assert n[t] == (span if span * xe._TEXEL_BYTES <= xe._SHARED_BUDGET else 0)
+    if kind == "nearest" and ow >= w:
+        assert (n > 0).all()
+    if w == 3000:
+        assert (n == 0).all() and max_n == 0
+
+
+def test_prepared_maps_equal_the_three_arrays():
+    rng = np.random.default_rng(5)
+    w, ow, oh = 40, 240, 36
+    S = _t(np.concatenate([rng.integers(0, 256, (2, 15, oh, w)), rng.integers(0, 32, (2, 4, oh, w))], 1).astype(f32))
+    bx = np.repeat(np.arange(w), 6).astype(np.int32)
+    fpx, fpy = rng.random(ow, f32), rng.random(oh, f32)
+    maps = xe.prepare_maps(bx, fpx, fpy, w, "cpu")
+    assert maps.tile_lo is None and maps.general_tiles == 0  # no tile plan off the card
+    np.testing.assert_array_equal(maps.bx.numpy(), bx)
+    assert torch.equal(xe.xbr_epilogue(S, maps), xe.xbr_epilogue(S, bx, fpx, fpy))
+    with pytest.raises(ValueError):
+        xe.xbr_epilogue(S[..., :39], maps)  # maps of another width
+    with pytest.raises(ValueError):
+        xe.xbr_epilogue(S[:, :, :35], maps)  # and of another height
+    with pytest.raises(ValueError):
+        xe.prepare_maps(bx.astype(f32), fpx, fpy, w, "cpu")
+    with pytest.raises(ValueError):
+        xe.prepare_maps(bx, fpx[:-1], fpy, w, "cpu")
+    with pytest.raises(RuntimeError):
+        xe.prepare_maps(bx, fpx, fpy, w, "meta")
+    before = xe.general_blocks()
+    assert xe.general_blocks(reset=True) == before and xe.general_blocks() == 0
