@@ -9,7 +9,10 @@ its plain torch version on the card, drives the main path
 (``Engine.load_preset`` + ``Engine.apply``) at full size for the
 feedback-ghost-nv12 slice, a warped curvature pass, the crt-mattias hand
 kernel (default blur, ``RCTPU_BLUR=v1`` and ``RCTPU_MATTIAS=preconv``),
-feedback-ghost under ``RCTPU_XPHASE=on`` and the xbr-lv2 hand kernel,
+feedback-ghost under ``RCTPU_XPHASE=on`` and the xbr-lv2 hand kernel, and
+the program's front door (a ``FramePipeline`` fed through the frame queue's
+``stream``, ``apply_streams``, ``apply_u8`` and the max-resolution clamp, two
+``mipmap_input`` presets, and the command line in process),
 compares them with the port's own CPU run, counts the work that left
 shared memory for global (the blur kernel's wide tiles, the blit's and the
 xbr epilogue's general-path units: none may at the main paths'
@@ -45,6 +48,14 @@ SLICE_BATCH = 128
 WARP_BATCH = 8
 MATTIAS_BATCH = 32
 XBR_BATCH = 64  # bench.py's xbr-lv2-1080p
+STREAM_FRAMES = 128  # through io.queue.stream, in batches of STREAM_BATCH
+STREAM_BATCH = 32
+STREAMS = (4, 8)  # apply_streams: S streams of T frames
+MIP_BATCH = 4
+CLAMP_SRC_HW = (960, 1280)  # a source above the clamp ...
+CLAMP_TO = (640, 480)  # ... of set_max_shader_resolution (W, H)
+CLI_FRAMES = 16
+WINDOWS = 3  # repeated timing windows of the stream and streams phases
 DEV = "cuda"  # the card; the checks below never fall back to the CPU
 
 # The card's published peaks (H100 SXM, dense, at 700 W): a kernel's bound
@@ -66,9 +77,7 @@ scale_type0 = viewport
 scale0 = 1.0
 """
 
-WARP_GLSL = """#pragma parameter CURV "Curvature" 0.25 0.0 1.0 0.05
-
-#if defined(VERTEX)
+_VERTEX_GLSL = """#if defined(VERTEX)
 
 attribute vec4 VertexCoord;
 attribute vec4 TexCoord;
@@ -82,7 +91,11 @@ void main()
 }
 
 #elif defined(FRAGMENT)
+"""
 
+WARP_GLSL = """#pragma parameter CURV "Curvature" 0.25 0.0 1.0 0.05
+
+""" + _VERTEX_GLSL + """
 varying vec2 vTexCoord;
 uniform sampler2D Texture;
 
@@ -101,6 +114,82 @@ void main()
 
 #endif
 """
+
+# Two presets whose input is mipmapped. mip-glow is the crt-hyllian-glow
+# pattern: a pass at a fraction of the source size that blurs its input,
+# whose taps are affine in the pixel, so the level of detail is one
+# number (log2(1 / 0.3) = 1.74 at scale 0.3: a blend of levels 1 and 2).
+MIP_GLOW_GLSLP = """shaders = 1
+shader0 = mip-glow.glsl
+filter_linear0 = true
+mipmap_input0 = true
+scale_type0 = source
+scale0 = {scale}
+"""
+
+MIP_GLOW_GLSL = _VERTEX_GLSL + """
+varying vec2 vTexCoord;
+uniform sampler2D Texture;
+uniform vec2 TextureSize;
+
+void main()
+{
+    vec2 d = 1.0 / TextureSize;
+    vec4 c = 0.41 * texture2D(Texture, vTexCoord);
+    c += 0.1475 * texture2D(Texture, vTexCoord + vec2(d.x, 0.0));
+    c += 0.1475 * texture2D(Texture, vTexCoord - vec2(d.x, 0.0));
+    c += 0.1475 * texture2D(Texture, vTexCoord + vec2(0.0, d.y));
+    c += 0.1475 * texture2D(Texture, vTexCoord - vec2(0.0, d.y));
+    gl_FragColor = c;
+}
+
+#endif
+"""
+
+# mip-warp minifies through a curvature warp (ZOOM source widths across
+# the output, more towards the corners), so the level of detail differs
+# per pixel and crosses whole levels: one warped sample per pyramid level.
+MIP_WARP_GLSLP = """shaders = 1
+shader0 = mip-warp.glsl
+filter_linear0 = {linear}
+wrap_mode0 = repeat
+mipmap_input0 = true
+scale_type0 = viewport
+scale0 = 1.0
+"""
+
+MIP_WARP_GLSL = """#pragma parameter ZOOM "Zoom out" 10.0 1.0 32.0 1.0
+
+""" + _VERTEX_GLSL + """
+varying vec2 vTexCoord;
+uniform sampler2D Texture;
+
+#ifdef PARAMETER_UNIFORM
+uniform float ZOOM;
+#else
+#define ZOOM 10.0
+#endif
+
+void main()
+{
+    vec2 cc = vTexCoord - 0.5;
+    float r2 = dot(cc, cc);
+    gl_FragColor = texture2D(Texture, 0.5 + cc * (ZOOM * (1.0 + 0.5 * r2)));
+}
+
+#endif
+"""
+
+
+def write_mip_presets(tmp, scale=0.3, linear=True):
+    """Write the two mipmapped presets under ``tmp``; their paths."""
+    tmp = Path(tmp)
+    (tmp / "mip-glow.glslp").write_text(MIP_GLOW_GLSLP.format(scale=scale))
+    (tmp / "mip-glow.glsl").write_text(MIP_GLOW_GLSL)
+    (tmp / "mip-warp.glslp").write_text(MIP_WARP_GLSLP.format(linear="true" if linear else "false"))
+    (tmp / "mip-warp.glsl").write_text(MIP_WARP_GLSL)
+    return str(tmp / "mip-glow.glslp"), str(tmp / "mip-warp.glslp")
+
 
 # feedback-ghost with its pass at the source size (absolute scale), so
 # that the viewport blit is a 320 -> 1920 (r = 6) upscale: the xphase path.
@@ -160,8 +249,11 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+_T0 = time.perf_counter()
+
+
 def say(phase, msg):
-    print(f"[{phase}] {msg}", flush=True)
+    print(f"[{phase} +{time.perf_counter() - _T0:.0f}s] {msg}", flush=True)
 
 
 def event_ms(fn, iters):
@@ -339,36 +431,43 @@ def _truth_u8(tex, ay_t, ax_t):
     return torch.round(scaled).to(torch.int32), edge
 
 
-def phase_resample(gen):
+def check_blit(tex, oh, ow, phase):
+    """Hold resample_u8 on ``tex [B, H, W, 3]`` -> oh x ow against its plain
+    version and both against the f64 truth; no unit of work may take the
+    general path. Returns the kernel's largest distance from the plain
+    version in u8 steps."""
     import torch
 
     from retrocapture_tpu_torch.ops.cuda import resample as rs
 
+    b, h, w = tex.shape[:3]
+    ay, ax = rs.blit_matrices(h, w, ow, oh)
+    rs.general_blocks(reset=True)
+    got = rs.resample_u8(tex, ay, ax)
+    general = rs.general_blocks(reset=True)
+    ay_t = None if ay is None else torch.from_numpy(ay).to(DEV)
+    ax_t = None if ax is None else torch.from_numpy(ax).to(DEV)
+    plain = rs.resample_u8_plain(tex, ay_t, ax_t)
+    check(got.shape == (b, oh, ow, 3) and got.dtype == torch.uint8, f"resample shape {tuple(got.shape)}")
+    what = f"{b}x{h}x{w} -> {oh}x{ow}"
+    check(general == 0, f"resample {what}: {general} units of work took the general path")
+    for s in range(0, b, TRUTH_CHUNK):
+        q64, edge = _truth_u8(tex[s : s + TRUTH_CHUNK], ay_t, ax_t)
+        for label, out in (("kernel", got), ("plain", plain)):
+            d = (out[s : s + TRUTH_CHUNK].to(torch.int32) - q64).abs()
+            check(int(d.max()) <= 1, f"resample {label} {what}: {int(d.max())} steps from f64 truth")
+            off = int((d[~edge] != 0).sum())
+            check(off == 0, f"resample {label} {what}: {off} non-knife-edge pixels off the f64 truth")
+        del q64, edge
+    kd = int((got.to(torch.int32) - plain.to(torch.int32)).abs().max())
+    say(phase, f"resample_u8 {what}: ok (kernel vs plain max {kd} step, general-path units {general})")
+    return kd
+
+
+def phase_resample(gen):
     worst = 0
     for b, h, w, oh, ow in RESAMPLE_GEOMETRIES:
-        ay, ax = rs.blit_matrices(h, w, ow, oh)
-        tex = knife_tex(gen, (b, h, w, 3), DEV)
-        rs.general_blocks(reset=True)
-        got = rs.resample_u8(tex, ay, ax)
-        general = rs.general_blocks(reset=True)
-        ay_t = None if ay is None else torch.from_numpy(ay).to(DEV)
-        ax_t = None if ax is None else torch.from_numpy(ax).to(DEV)
-        plain = rs.resample_u8_plain(tex, ay_t, ax_t)
-        check(got.shape == (b, oh, ow, 3) and got.dtype == torch.uint8, f"resample shape {tuple(got.shape)}")
-        what = f"{b}x{h}x{w} -> {oh}x{ow}"
-        check(general == 0, f"resample {what}: {general} units of work took the general path")
-        for s in range(0, b, TRUTH_CHUNK):
-            q64, edge = _truth_u8(tex[s : s + TRUTH_CHUNK], ay_t, ax_t)
-            for label, out in (("kernel", got), ("plain", plain)):
-                d = (out[s : s + TRUTH_CHUNK].to(torch.int32) - q64).abs()
-                check(int(d.max()) <= 1, f"resample {label} {what}: {int(d.max())} steps from f64 truth")
-                off = int((d[~edge] != 0).sum())
-                check(off == 0, f"resample {label} {what}: {off} non-knife-edge pixels off the f64 truth")
-            del q64, edge
-        kd = int((got.to(torch.int32) - plain.to(torch.int32)).abs().max())
-        worst = max(worst, kd)
-        say("3", f"resample_u8 {what}: ok (kernel vs plain max {kd} step, general-path units {general})")
-        del got, plain, tex
+        worst = max(worst, check_blit(knife_tex(gen, (b, h, w, 3), DEV), oh, ow, "3"))
     return worst
 
 
@@ -416,7 +515,7 @@ def phase_warp(gen):
                 err = 0.0
             else:
                 err = float((got - want).abs().masked_fill(nan_g, 0.0).max())
-                check(err <= 2e-6, f"warp LINEAR {mode}: max |d| {err:.3e} > 2e-6")
+                check(err == 0.0, f"warp LINEAR {mode}: not bit-equal off the NaNs (max |d| {err:.3e})")
             worst = max(worst, err)
             say("4", f"warp_sample {'LINEAR' if lin else 'NEAREST'} {mode}: ok (max |d| {err:.3e})")
     return worst, (tex, u, v)
@@ -836,6 +935,325 @@ def phase_xbr_slice(gen, Engine, path):
     return e, frames, launches
 
 
+def _quantized(x):
+    """f32 frames in [0, 1] as u8 codes (round half to even)."""
+    import torch
+
+    return torch.round(torch.clamp(x, 0.0, 1.0) * 255.0).to(torch.uint8)
+
+
+def _rates(label, n_frames, seconds, card):
+    """One line with frames/s as min / median / max over the windows."""
+    fps = sorted(n_frames / s for s in seconds)
+    return (f"{label}: {fps[0]:.1f} / {fps[len(fps) // 2]:.1f} / {fps[-1]:.1f} frames/s (min / median / max of "
+            f"{len(fps)} windows of {n_frames} frames)  ({card})")
+
+
+def _stream_pipeline(Engine, dev):
+    from retrocapture_tpu_torch.runtime.pipeline import FramePipeline, ImageSettings
+
+    e = Engine(device=dev)
+    check(e.load_preset(str(PRESET)), f"load_preset: {e.last_error}")
+    return FramePipeline(
+        e, logical_resolution=(160, 120), overscan_percent=(2.0, 2.0), window=VIEWPORT,
+        image=ImageSettings(brightness=1.1, contrast=0.9, flip_y=True, maintain_aspect=True),
+    )
+
+
+def phase_stream(Engine, card):
+    """TestPatternSource -> io.queue.stream -> FramePipeline.process over
+    feedback-ghost (logical resolution 160x120, 2% overscan, brightness
+    1.1, contrast 0.9, flip-Y, a pillarboxed 1920x1080 window): the frames
+    come out in order and one batch late, equal to the same batches
+    processed without the queue, and FrameStats counts them."""
+    import numpy as np
+    import torch
+
+    from retrocapture_tpu_torch.io.queue import stream
+    from retrocapture_tpu_torch.io.testpattern import TestPatternSource
+
+    h, w = SRC_HW
+    vw, vh = VIEWPORT
+    src = TestPatternSource(w, h)
+    frames = [src.capture_frame() for _ in range(STREAM_FRAMES)]
+    n_batches = STREAM_FRAMES // STREAM_BATCH
+
+    # The same batches without the queue, brought to the host one by one.
+    direct_p = _stream_pipeline(Engine, DEV)
+    direct = [direct_p.process(np.stack(frames[i * STREAM_BATCH:(i + 1) * STREAM_BATCH])).cpu().numpy()
+              for i in range(n_batches)]
+    _engine_ok(direct_p.engine, "stream (direct)")
+
+    p = _stream_pipeline(Engine, DEV)
+    processed = []
+
+    def process(batch):
+        check(batch.device.type == torch.device(DEV).type and batch.dtype == torch.uint8,
+              f"stream: the feeder gave {batch.dtype} on {batch.device}")
+        processed.append(batch.shape[0])
+        return p.process(batch)
+
+    n = 0
+    for out in stream(iter(frames), process, batch=STREAM_BATCH, device=DEV):
+        b = n // STREAM_BATCH
+        # Frame n of batch b comes out when batch b + 1 is in (the last at the flush).
+        check(len(processed) == min(b + 2, n_batches), f"stream: frame {n} came out after {len(processed)} batches")
+        check(out.shape == (vh, vw, 3) and out.dtype == np.float32, f"stream: frame {n} is {out.dtype} {out.shape}")
+        check(np.array_equal(out, direct[b][n % STREAM_BATCH]), f"stream: frame {n} is not frame {n} of the direct run")
+        n += 1
+    _engine_ok(p.engine, "stream")
+    check(n == STREAM_FRAMES, f"stream: {n} frames came out of {STREAM_FRAMES}")
+    check(p.stats.frames == STREAM_FRAMES and p.stats.batches == n_batches, f"stream: FrameStats {p.stats.snapshot()}")
+    bars = max(float(direct[0][0][:, 0].max()), float(direct[0][0][:, -1].max()))
+    check(bars == 0.0 and float(direct[0][0][:, vw // 2].mean()) > 0.0, "stream: no pillarbox bars or no content")
+    cpu = _stream_pipeline(Engine, "cpu").process(np.stack(frames[:2]))
+    dmax, frac = _cmp_u8(_quantized(torch.from_numpy(direct[0][:2])), _quantized(cpu), "stream cuda vs cpu")
+    say("16", f"stream {STREAM_FRAMES} frames {h}x{w} in batches of {STREAM_BATCH} -> {vh}x{vw} f32 through "
+        f"FramePipeline: ok (in order, one batch late, == the direct run, FrameStats {p.stats.frames}; cuda vs cpu "
+        f"on 2 frames: max {dmax} step, {frac:.2e} of values)")
+    del direct
+    seconds = []
+    for _ in range(WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = sum(1 for _ in stream(iter(frames), p.process, batch=STREAM_BATCH, device=DEV))
+        seconds.append(time.perf_counter() - t0)
+        check(got == STREAM_FRAMES, f"stream window: {got} frames")
+    say("16", _rates("stream phase, H2D and D2H included", STREAM_FRAMES, seconds, card))
+    say("16", f"stream phase FrameStats (host time of process() up to its last enqueue: it reads the clock without "
+        f"a synchronize): {p.stats.snapshot()}")
+    # process() alone on a batch that is on the card already, to the end of
+    # its device work; and the device's busy share of it.
+    batch = torch.from_numpy(np.stack(frames[:STREAM_BATCH])).to(DEV)
+    walls = []
+    for _ in range(WINDOWS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p.process(batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    walls = sorted(walls[1:])
+    busy = device_ms(lambda: p.process(batch), 1)
+    wall = walls[len(walls) // 2]
+    say("16", f"FramePipeline.process of {STREAM_BATCH} frames with a synchronize: {walls[0]:.1f} / {wall:.1f} / "
+        f"{walls[-1]:.1f} ms (min / median / max of {len(walls)}); device busy {busy:.1f} ms, idle "
+        f"{100.0 * (1.0 - busy / wall):.1f}% of the median  ({card})")
+
+
+def phase_streams(gen, Engine, card):
+    """apply_streams on [S, T, 240, 320, 3]: stream s equals a fresh engine
+    fed stream s alone, bit for bit on the card."""
+    import torch
+
+    s_n, t_n = STREAMS
+    h, w = SRC_HW
+    vw, vh = VIEWPORT
+    frames = torch.randint(0, 256, (s_n, t_n, h, w, 3), generator=gen, device=DEV, dtype=torch.uint8)
+
+    def engine(dev):
+        e = Engine(viewport=VIEWPORT, device=dev)
+        check(e.load_preset(str(PRESET)), f"load_preset: {e.last_error}")
+        return e
+
+    e = engine(DEV)
+    out = e.apply(frames)  # the 5-D branch of apply
+    torch.cuda.synchronize()
+    _engine_ok(e, "apply_streams")
+    check(tuple(out.shape) == (s_n, t_n, vh, vw, 3) and out.dtype == torch.float32, f"apply_streams: {out.dtype} {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), "apply_streams: non-finite output")
+    st = e._states[(h, w, vw, vh, s_n, "const")]
+    check(st.frame_count.tolist() == [t_n] * s_n, f"apply_streams: frame counts {st.frame_count.tolist()}")
+    for i in range(s_n):
+        own = engine(DEV).apply(frames[i])
+        check(bool(torch.equal(out[i], own)), f"apply_streams: stream {i} differs from an engine of its own")
+    cpu = engine("cpu").apply_streams(frames[:1, :2].cpu())
+    dmax, frac = _cmp_u8(_quantized(engine(DEV).apply_streams(frames[:1, :2]).cpu()), _quantized(cpu), "apply_streams cuda vs cpu")
+    say("17", f"apply_streams [{s_n},{t_n},{h},{w},3] -> [{s_n},{t_n},{vh},{vw},3] f32: ok (each stream == an engine "
+        f"of its own; cuda vs cpu on 2 frames: max {dmax} step, {frac:.2e} of values)")
+    del out
+    seconds = []
+    for _ in range(WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e.apply_streams(frames)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    say("17", _rates("apply_streams", s_n * t_n, seconds, card))
+
+
+def phase_apply_u8(gen, Engine):
+    """apply_u8 against apply(output="u8") brought to the host, and one
+    apply of a 1280x960 source under set_max_shader_resolution(640, 480)
+    (CLAMP_SRC_HW, CLAMP_TO).
+    Returns the resample_u8 launches of the two main runs."""
+    import numpy as np
+    import torch
+
+    from retrocapture_tpu_torch.ops.cuda import resample as rs
+
+    h, w = SRC_HW
+    vw, vh = VIEWPORT
+
+    def engine(dev, clamp=False):
+        e = Engine(viewport=VIEWPORT, device=dev)
+        check(e.load_preset(str(PRESET)), f"load_preset: {e.last_error}")
+        if clamp:
+            e.set_max_shader_resolution(*CLAMP_TO)
+        return e
+
+    frames = torch.randint(0, 256, (WARP_BATCH, h, w, 3), generator=gen, device=DEV, dtype=torch.uint8)
+    rs.LAUNCHES = 0
+    rs.general_blocks(reset=True)
+    e = engine(DEV)
+    got = e.apply_u8(frames)
+    _engine_ok(e, "apply_u8")
+    check(rs.LAUNCHES == 1, f"apply_u8: {rs.LAUNCHES} resample_u8 launches, want 1")
+    check(isinstance(got, np.ndarray) and got.dtype == np.uint8 and got.shape == (WARP_BATCH, vh, vw, 3),
+          f"apply_u8: {type(got).__name__} {getattr(got, 'dtype', None)} {getattr(got, 'shape', None)}")
+
+    ch, cw = CLAMP_SRC_HW
+    big = torch.randint(0, 256, (2, ch, cw, 3), generator=gen, device=DEV, dtype=torch.uint8)
+    ec = engine(DEV, clamp=True)
+    check(ec._clamped_source(cw, ch) == CLAMP_TO, f"clamp: {ec._clamped_source(cw, ch)}")
+    clamped = ec.apply(big, output="u8")
+    torch.cuda.synchronize()
+    _engine_ok(ec, "clamped apply")
+    launches = rs.LAUNCHES
+    general = rs.general_blocks(reset=True)
+    check(launches == 2, f"apply_u8 and the clamped apply: {launches} resample_u8 launches, want 2")
+    check(general == 0, f"apply_u8 and the clamped apply: {general} resample_u8 units of work took the general path")
+    check(tuple(clamped.shape) == (2, vh, vw, 3) and clamped.dtype == torch.uint8, f"clamp: {clamped.dtype} {tuple(clamped.shape)}")
+
+    want = engine(DEV).apply(frames, output="u8").cpu().numpy()
+    check(np.array_equal(got, want), "apply_u8 differs from apply(output='u8') brought to the host")
+    dmax, frac = _cmp_u8(torch.from_numpy(got[:2]), engine("cpu").apply(frames[:2].cpu(), output="u8"), "apply_u8 cuda vs cpu")
+    cmax, cfrac = _cmp_u8(clamped.cpu(), engine("cpu", clamp=True).apply(big.cpu(), output="u8"), "clamped apply cuda vs cpu")
+    unclamped = engine(DEV).apply(big, output="u8")
+    moved = float((unclamped != clamped).float().mean())
+    check(moved > 0.01, f"clamp: the clamped output equals the unclamped one in {1 - moved:.3f} of values")
+    say("18", f"apply_u8 {WARP_BATCH}x{h}x{w} -> numpy u8 {vh}x{vw}: ok (== apply(output='u8'); cuda vs cpu on 2 "
+        f"frames: max {dmax} step, {frac:.2e}); {cw}x{ch} under set_max_shader_resolution{CLAMP_TO}: ok (cuda vs cpu "
+        f"on 2 frames: max {cmax} step, {cfrac:.2e}; {moved:.3f} of values off the unclamped output); "
+        f"resample_u8 launches {launches}, general-path units {general}")
+    return launches
+
+
+def phase_mip(gen, Engine, tmp):
+    """The two mipmap_input presets: mip-glow (affine taps, one level of
+    detail) and mip-warp (warped taps, one warp_sample launch per pyramid
+    level and frame). The inputs that the two runs give the blit and the
+    warp kernel are recorded, and after the counts are read each kernel is
+    held against its plain version on them: every pyramid level down to
+    1x2 texels under the repeat wrap, and the blit from the glow pass's
+    size. Returns the runs' (resample_u8, warp_sample) launches and the
+    blit kernel's largest distance from its plain version in u8 steps (the
+    warp kernel must equal its plain version bit for bit)."""
+    import torch
+
+    from retrocapture_tpu_torch.ops.cuda import resample as rs
+    from retrocapture_tpu_torch.ops.cuda import warp_sample as ws
+    from retrocapture_tpu_torch.ops.sampling import WRAP_MODES, _max_lod
+    from retrocapture_tpu_torch.runtime import engine as engine_module
+
+    glow, warp = write_mip_presets(tmp)
+    h, w = SRC_HW
+    vw, vh = VIEWPORT
+    levels = _max_lod(h, w) + 1
+    frames = torch.randint(0, 256, (MIP_BATCH, h, w, 3), generator=gen, device=DEV, dtype=torch.uint8)
+
+    def engine(path, dev):
+        e = Engine(viewport=VIEWPORT, device=dev)
+        check(e.load_preset(path), f"load {path}: {e.last_error}")
+        return e
+
+    warp_calls, blit_calls = [], []
+    warp_kernel, blit_kernel = ws.warp_sample, engine_module.blit_u8
+
+    def warp_rec(tex, u, v, **kw):
+        warp_calls.append((tex, u, v, kw))
+        return warp_kernel(tex, u, v, **kw)
+
+    def blit_rec(tex, dst_w, dst_h):
+        blit_calls.append(tex)
+        return blit_kernel(tex, dst_w, dst_h)
+
+    rs.LAUNCHES = ws.LAUNCHES = 0
+    outs = {}
+    ws.warp_sample, engine_module.blit_u8 = warp_rec, blit_rec
+    try:
+        for name, path in (("mip-glow", glow), ("mip-warp", warp)):
+            e = engine(path, DEV)
+            outs[name] = e.apply(frames, output="u8")
+            torch.cuda.synchronize()
+            _engine_ok(e, name)
+            check(tuple(outs[name].shape) == (MIP_BATCH, vh, vw, 3) and outs[name].dtype == torch.uint8,
+                  f"{name}: {outs[name].dtype} {tuple(outs[name].shape)}")
+    finally:
+        ws.warp_sample, engine_module.blit_u8 = warp_kernel, blit_kernel
+    counts = (rs.LAUNCHES, ws.LAUNCHES)
+    check(counts[1] == MIP_BATCH * levels, f"mip-warp: {counts[1]} warp_sample launches, want {MIP_BATCH} frames x "
+          f"{levels} levels")
+    check(counts[0] == 2, f"mip presets: {counts[0]} resample_u8 launches, want 2")
+    # The pyramid is in use: the glow pass loses the texture's fine detail.
+    flat = float(outs["mip-glow"].float().std())
+    check(flat < 0.6 * float(frames.float().std()), f"mip-glow: output std {flat:.1f} of input {float(frames.float().std()):.1f}")
+    res = []
+    for name, path in (("mip-glow", glow), ("mip-warp", warp)):
+        cpu = engine(path, "cpu").apply(frames[:2].cpu(), output="u8")
+        res.append(_cmp_u8(outs[name][:2].cpu(), cpu, f"{name} cuda vs cpu"))
+    say("19", f"mipmap_input presets {MIP_BATCH}x{h}x{w} -> {vh}x{vw} u8: ok (mip-glow cuda vs cpu on 2 frames: max "
+        f"{res[0][0]} step, {res[0][1]:.2e}; mip-warp: max {res[1][0]} step, {res[1][1]:.2e}; warp_sample launches "
+        f"{counts[1]} = {MIP_BATCH} frames x {levels} levels)")
+
+    # Each kernel against its plain version on what the runs gave it (these
+    # launches come after the counts were read). The end-to-end gate above
+    # cannot see the upper levels: their blend weight is 0 where the level
+    # of detail stays below them.
+    check(len(warp_calls) == counts[1] and len(blit_calls) == counts[0], "mip: a launch went unrecorded")
+    shapes = sorted({tuple(c[0].shape[:2]) for c in warp_calls}, reverse=True)
+    want_shapes = [(max(h >> k, 1), max(w >> k, 1)) for k in range(levels)]
+    check(shapes == want_shapes, f"mip-warp: sampled levels {shapes}, want {want_shapes}")
+    for tex, u, v, kw in warp_calls:
+        check(kw == {"filter_linear": True, "wrap_mode": "repeat"} and tuple(u.shape) == (vh, vw), f"mip-warp tap: {kw}")
+        got, want = ws.warp_sample(tex, u, v, **kw), ws.warp_sample_plain(tex, u, v, **kw)
+        check(bool(torch.equal(got, want)), f"mip-warp level {tuple(tex.shape)}: kernel not bit-equal to its plain "
+              f"version (max |d| {float((got - want).abs().max()):.3e})")
+    # The other wrap modes and NEAREST at every level's size, on the last
+    # frame's pyramid and grid.
+    for tex, u, v, _ in warp_calls[-levels:]:
+        for lin in (False, True):
+            for mode in WRAP_MODES:
+                kw = {"filter_linear": lin, "wrap_mode": mode}
+                got, want = ws.warp_sample(tex, u, v, **kw), ws.warp_sample_plain(tex, u, v, **kw)
+                check(bool(torch.equal(got, want)), f"warp_sample {tuple(tex.shape)} {kw}: not bit-equal to its plain version")
+    say("19", f"warp_sample at the {len(warp_calls)} recorded mip-warp taps (levels {shapes[0]} .. {shapes[-1]}, LINEAR "
+        f"repeat @ {vh}x{vw}) and at every level x filter x wrap mode: bit-equal to its plain version")
+    check(tuple(blit_calls[0].shape) == (MIP_BATCH, int(h * 0.3), int(w * 0.3), 3), f"mip-glow blit from {tuple(blit_calls[0].shape)}")
+    return counts, max(check_blit(tex, vh, vw, "19") for tex in blit_calls)
+
+
+def phase_cli(tmp):
+    """python -m retrocapture_tpu_torch's main() in process, on the card:
+    16 frames of the test pattern through feedback-ghost to 1080p."""
+    import numpy as np
+
+    from retrocapture_tpu_torch import cli
+
+    prefix = Path(tmp) / "cli-out"
+    rc = cli.main([
+        "--source", "test", "--preset", "assets/presets/feedback-ghost.glslp", "--viewport",
+        f"{VIEWPORT[0]}x{VIEWPORT[1]}", "--frames", str(CLI_FRAMES), "--batch", "8", "--stats", "--output", str(prefix),
+    ] + (["--cpu"] if DEV == "cpu" else []))
+    check(rc == 0, f"cli: main returned {rc}")
+    out = np.load(str(prefix) + ".npy", mmap_mode="r")
+    check(out.shape == (CLI_FRAMES, VIEWPORT[1], VIEWPORT[0], 3) and out.dtype == np.float32, f"cli: {out.dtype} {out.shape}")
+    check(bool(np.isfinite(out[0]).all()) and float(out[-1].std()) > 0.05, "cli: empty or non-finite frames")
+    check(not Path(str(prefix) + ".png").exists(), "cli: a PNG was written for a batch of frames")
+    say("20", f"cli main(--source test --preset assets/presets/feedback-ghost.glslp --viewport 1920x1080 --frames "
+        f"{CLI_FRAMES} --batch 8 --stats --output ...): ok (returned 0, .npy {list(out.shape)})")
+    del out
+
+
 def main() -> int:
     if not (REPO / "retrocapture_tpu_torch" / "__init__.py").is_file():
         raise SystemExit("chip_smoke: retrocapture_tpu_torch is not beside this script")
@@ -1073,6 +1491,19 @@ def main() -> int:
             f"{lib['interpolate']:.3f} ms; F.grid_sample bilinear zeros [1,4,{h},{w}] @ {vh}x{vw} "
             f"{lib['grid_sample']:.4f} ms  ({card})")
         del x_nchw
+
+        # Phases 16-20: the program's front door. The counts of the two
+        # kernels on these paths are read after each phase's main runs.
+        os.chdir(REPO)  # the cli phase names its preset relative to the checkout
+        phase_stream(Engine, card)
+        phase_streams(gen, Engine, card)
+        u8_launches = phase_apply_u8(gen, Engine)
+        (mip_rs, mip_ws), mip_rs_err = phase_mip(gen, Engine, Path(td))
+        rs_err = max(rs_err, mip_rs_err)
+        phase_cli(td)
+        launches["resample_u8"] += u8_launches + mip_rs
+        launches["warp_sample"] += mip_ws
+        say("16-20", f"main-path launches: {launches}")
 
     # Each kernel's bound at its timed shape: inputs read once, outputs
     # written once; f32 operations counted per output value or pixel.

@@ -19,9 +19,12 @@
 // INT32_MIN and finite out-of-range values saturate (sampling._ifloor32,
 // tested with isfinite explicitly rather than relying on the float->int
 // intrinsic's NaN result); the +1 tap wraps in int32 as XLA's add does;
-// wrap modes use floor-mod as jnp.remainder does. The LINEAR coordinate
-// u*W - 0.5 and the lerps t00 + (t01 - t00)*fx are __fmul_rn/__fadd_rn,
-// so no FMA contraction can move a texel choice at a texel boundary.
+// wrap modes use floor-mod as jnp.remainder does. The NEAREST index
+// product is __fmul_rn. The LINEAR coordinate u*W - 0.5 and the lerps
+// t00 + (t01 - t00)*fx are each one fused multiply-add (__fmaf_rn: one
+// rounding), as the reference's jitted gather computes them on the CPU,
+// where XLA contracts them into FMAs; the plain version takes the same
+// single rounding through policy.fmaf32, so the two agree bit for bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -93,8 +96,8 @@ __global__ void warp_sample_kernel(const float* __restrict__ tex, const float* _
     for (int c = 0; c < C; ++c) dst[c] = texel(src, iy, ix, ok, W, C, c);
     return;
   }
-  const float x = __fadd_rn(__fmul_rn(uu, static_cast<float>(W)), -0.5f);
-  const float y = __fadd_rn(__fmul_rn(vv, static_cast<float>(H)), -0.5f);
+  const float x = __fmaf_rn(uu, static_cast<float>(W), -0.5f);
+  const float y = __fmaf_rn(vv, static_cast<float>(H), -0.5f);
   const float fx = __fsub_rn(x, floorf(x));
   const float fy = __fsub_rn(y, floorf(y));
   const int x0 = ifloor32(x);
@@ -109,9 +112,9 @@ __global__ void warp_sample_kernel(const float* __restrict__ tex, const float* _
     const float t01 = texel(src, y0w, x1w, vy0 && vx1, W, C, c);
     const float t10 = texel(src, y1w, x0w, vy1 && vx0, W, C, c);
     const float t11 = texel(src, y1w, x1w, vy1 && vx1, W, C, c);
-    const float top = __fadd_rn(t00, __fmul_rn(__fsub_rn(t01, t00), fx));
-    const float bot = __fadd_rn(t10, __fmul_rn(__fsub_rn(t11, t10), fx));
-    dst[c] = __fadd_rn(top, __fmul_rn(__fsub_rn(bot, top), fy));
+    const float top = __fmaf_rn(__fsub_rn(t01, t00), fx, t00);
+    const float bot = __fmaf_rn(__fsub_rn(t11, t10), fx, t10);
+    dst[c] = __fmaf_rn(__fsub_rn(bot, top), fy, top);
   }
 }
 

@@ -1366,7 +1366,7 @@ class ShaderEval:
 
     # -- textures -------------------------------------------------------
     def _eval_texture(self, name: str, raw_args: list[A.Expr]):
-        from retrocapture_tpu_torch.ops.sampling import sample2d_affine
+        from retrocapture_tpu_torch.ops.sampling import sample2d_affine, sample2d_affine_mip
 
         args = [self.eval(a) for a in raw_args]
         sampler = args[0]
@@ -1401,12 +1401,27 @@ class ShaderEval:
             last = uv.type.shape[0] - 1
             uv = V(d[..., :2] / d[..., last : last + 1], GType("float", (2,)))
 
-        if sampler.mipmap:
-            # Mip sampling (sample2d_lod / _affine_mip / _warped_mip in the
-            # JAX package) is not ported yet.
-            raise NotImplementedError(
-                f"{name} on a mipmap_input texture is not ported to torch yet"
-            )
+        # Explicit-LOD sampling of a mipmapped texture (textureLod /
+        # tex2Dlod-era code like crt-royale's mask resizers): a concrete
+        # LOD selects box-pyramid levels with a trilinear blend.
+        if sampler.mipmap and name in ("textureLod", "texture2DLod") and len(args) >= 3:
+            lod_v = args[2]
+            if is_concrete(lod_v.data) and lod_v.batch_shape == ():
+                from retrocapture_tpu_torch.ops.sampling import sample2d_lod
+
+                lod = float(np.asarray(lod_v.astype("float").data))
+                d = uv.data
+                if is_concrete(d):
+                    d = np.asarray(d, np.float32)
+                out = sample2d_lod(
+                    sampler.tex,
+                    d[..., 0],
+                    d[..., 1],
+                    lod,
+                    filter_linear=sampler.filter_linear,
+                    wrap_mode=sampler.wrap_mode,
+                )
+                return V(out, GType("float", (4,)))
         if name in ("textureOffset", "texture2DOffset", "textureLodOffset"):
             off = args[3 if name == "textureLodOffset" else 2].astype("float")
             texel = np.array([1.0 / w, 1.0 / h], np.float32)
@@ -1438,7 +1453,7 @@ class ShaderEval:
             ow, oh = self.ctx.out_size
             bs = uv.batch_shape
             if bs == (oh, ow):
-                if is_concrete(uv.data):
+                if not sampler.mipmap and is_concrete(uv.data):
                     # Concrete coords carry the evaluator's exact f32
                     # bits (stepped plane math + shader ops); the affine
                     # reconstruction below recomputes them through f64
@@ -1449,7 +1464,8 @@ class ShaderEval:
                     # recovers the same lowering.
                     d = np.asarray(uv.data, np.float32)
                     return self._quantized_tap(sampler, d[..., 0], d[..., 1])
-                out = sample2d_affine(
+                fn = sample2d_affine_mip if sampler.mipmap else sample2d_affine
+                out = fn(
                     sampler.tex,
                     aff[0],
                     aff[1],
@@ -1471,6 +1487,7 @@ class ShaderEval:
             and len(dep) >= 2
             and "y" not in dep[0]
             and "x" not in dep[1]
+            and not sampler.mipmap
         ):
             ow, oh = self.ctx.out_size
             if uv.batch_shape == (oh, ow):
@@ -1497,7 +1514,7 @@ class ShaderEval:
 
             dnp = np.asarray(uv.data, np.float32)
             rows = _separable_rows(dnp[..., 0], dnp[..., 1])
-            if rows is not None:
+            if rows is not None and not sampler.mipmap:
                 out = sample2d_separable(
                     sampler.tex,
                     rows[0],
@@ -1510,7 +1527,22 @@ class ShaderEval:
         d = uv.data
         if is_concrete(d):
             d = np.asarray(d, np.float32)
-        return self._quantized_tap(sampler, d[..., 0], d[..., 1])
+        u, v = d[..., 0], d[..., 1]
+        if sampler.mipmap and u.ndim == 2:
+            # Warped tap on a mipmap_input pass: per-pixel-LOD trilinear
+            # over the box pyramid (the reference generates mipmaps on
+            # the bound input for any consumer, ShaderEngine.cpp:1004-1036).
+            from retrocapture_tpu_torch.ops.sampling import sample2d_warped_mip
+
+            out = sample2d_warped_mip(
+                sampler.tex,
+                u,
+                v,
+                filter_linear=sampler.filter_linear,
+                wrap_mode=sampler.wrap_mode,
+            )
+            return V(out, GType("float", (4,)))
+        return self._quantized_tap(sampler, u, v)
 
     @staticmethod
     def _quantized_tap(sampler: SamplerVal, u, v) -> V:

@@ -16,9 +16,9 @@ code contracts ``a*b + c`` into one rounding where the tests
 which ``fma32`` reproduces,
 and divides by a constant as a multiply by its reciprocal, taken in
 f32 (``f32(1) / f32(c)``, one ulp below ``f32(1/c)`` for c = 3.14). The
-hash's ``sin`` is taken in float64 and rounded once to f32, so that the
-CPU and CUDA runs of the port agree; XLA's own f32 ``sin`` is within an
-ulp of it.
+f32 ``sin`` is ``policy.sinf32``: the C library's ``sinf`` that XLA's CPU
+code calls, repeated in float64 tensor ops, so that the CPU and CUDA
+runs of the port agree with it and with each other.
 
 The ntsc 2-phase and nnedi3 entries of the reference are not ported yet
 (ROADMAP queue 1).
@@ -32,7 +32,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from retrocapture_tpu_torch.policy import fma32
+from retrocapture_tpu_torch.policy import fma32, sinf32
 
 __all__ = ["find_kernel"]
 
@@ -44,12 +44,6 @@ def _glsl_pow(x, p: float):
     (frontend/builtins._b_pow): exp2(p * log2(x)); NaN for x<0 flushes
     to 0 at the RGBA8 store."""
     return torch.exp2(float(_F(p)) * torch.log2(x))
-
-
-def _sin32(x):
-    """f32 sin rounded once from float64: the same bits on the CPU and
-    in CUDA."""
-    return torch.sin(x.to(torch.float64)).to(torch.float32)
 
 
 def _rand_dt_sn(co_u, co_v):
@@ -64,7 +58,7 @@ def _rand_dt_sn(co_u, co_v):
 def _rand(co_u, co_v):
     """crt-mattias.glsl rand(): precision-safe hash
     fract(sin(mod(dot(co, (12.9898, 78.233)), 3.14)) * 43758.5453)."""
-    s = _sin32(_rand_dt_sn(co_u, co_v)[1]) * float(_F(43758.5453))
+    s = sinf32(_rand_dt_sn(co_u, co_v)[1], below_120=True) * float(_F(43758.5453))
     return s - torch.floor(s)
 
 
@@ -218,21 +212,22 @@ def _mattias_kernel(ctx, sh):
     col = col * _glsl_pow(vig, 0.3)[..., None]
     col = col * torch.tensor([0.95, 1.05, 0.95], dtype=torch.float32, device=dev)
     col = (col + (col * col - col) * float(_F(0.3))) * float(_F(3.8))
-    scans = torch.clamp(
-        0.35 + 0.15 * _sin32(3.5 * (t * scanspeed) + uv_v * float(oh) * 1.5),
-        0.0,
-        1.0,
-    )
+    # The scanline phase of every pixel and the flicker's one phase go
+    # through sinf32 together: one chain of launches, not two.
+    scan_arg = 3.5 * (t * scanspeed) + uv_v * float(oh) * 1.5
+    sines = sinf32(torch.cat([scan_arg.reshape(-1), (300.0 * t).reshape(1)]))
+    scans = torch.clamp(0.35 + 0.15 * sines[:-1].reshape(oh, ow), 0.0, 1.0)
     col = col * _glsl_pow(scans, 0.9)[..., None]
-    col = col * (1.0 + 0.0015 * _sin32(300.0 * t))
+    col = col * (1.0 + 0.0015 * sines[-1])
     o = 2.0 * torch.remainder(yg + 0.5, 2.0) * float(_F(1.0 / ow))
     fx = xg + 0.5
     comb = torch.clamp((torch.remainder(fx + o, 2.0) - 1.0) * 2.0, 0.0, 1.0)
     col = col * (1.0 - 0.15 * comb)[..., None]
-    n0 = _rand(uv_u + 0.0001 * t, uv_v + 0.0001 * t)
-    n1 = _rand(uv_u + 0.0001 * t + 0.3, uv_v + 0.0001 * t + 0.3)
-    n2 = _rand(uv_u + 0.0001 * t + 0.5, uv_v + 0.0001 * t + 0.5)
-    col = col * (1.0 - 0.25 * torch.stack([n0, n1, n2], dim=-1))
+    # rand(uv + 1e-4 t + {0, 0.3, 0.5}) per channel: the three hashes in
+    # one pass over a stacked [oh, ow, 3] argument.
+    offs = torch.tensor([0.0, 0.3, 0.5], dtype=torch.float32, device=dev)
+    noise = _rand((uv_u + 0.0001 * t)[..., None] + offs, (uv_v + 0.0001 * t)[..., None] + offs)
+    col = col * (1.0 - 0.25 * noise)
     col = _glsl_pow(torch.clamp_min(col, 0.0), 0.45)
     inside = (uv_u >= 0.0) & (uv_u <= 1.0) & (uv_v >= 0.0) & (uv_v <= 1.0)
     col = torch.where(inside[..., None], col, 0.0)

@@ -1,0 +1,222 @@
+"""Host-side frame pipeline: bounded queue + double-buffered device feed
+and async device→host readback. The port of
+``retrocapture_tpu/io/queue.py``.
+
+Equivalents of three reference components:
+
+* the capture thread's bounded frame queue with drop-oldest overflow
+  (VideoCaptureRemote.h:182-188, ~20 frames);
+* FrameProcessor's CPU→GPU upload (processing/FrameProcessor.cpp:43) —
+  ``DeviceFeeder`` copies a batch into one of two pinned host buffers and
+  starts the upload on a side stream, so the DMA overlaps the compute of
+  the batch before;
+* PBOManager's double-buffered async readback (renderer/PBOManager.cpp:
+  86-170) — ``DeviceReadback`` starts the download of the current batch
+  into pinned memory and returns the *previous* batch, one batch of
+  latency by design.
+
+On a CPU device both are plain tensor conversions.
+"""
+
+from __future__ import annotations
+
+import collections
+import threading
+from typing import Callable, Iterator, Optional
+
+import numpy as np
+import torch
+
+from retrocapture_tpu_torch.policy import to_device
+
+__all__ = ["FrameQueue", "DeviceFeeder", "DeviceReadback", "stream"]
+
+
+class FrameQueue:
+    """Thread-safe bounded FIFO of frames with drop-oldest overflow."""
+
+    def __init__(self, maxlen: int = 20):
+        self._dq: collections.deque = collections.deque()
+        self.maxlen = int(maxlen)
+        self._lock = threading.Lock()
+        self._not_empty = threading.Condition(self._lock)
+        self.dropped = 0
+        self.pushed = 0
+        self._closed = False
+
+    def push(self, frame: np.ndarray) -> None:
+        with self._lock:
+            if len(self._dq) >= self.maxlen:
+                self._dq.popleft()
+                self.dropped += 1
+            self._dq.append(frame)
+            self.pushed += 1
+            self._not_empty.notify()
+
+    def pop(self, timeout: Optional[float] = None) -> Optional[np.ndarray]:
+        with self._not_empty:
+            if not self._dq and not self._closed:
+                self._not_empty.wait(timeout)
+            if not self._dq:
+                return None
+            return self._dq.popleft()
+
+    def pop_batch(self, n: int, timeout: Optional[float] = None) -> Optional[np.ndarray]:
+        """Block until n frames are available (or closed); returns [n,...]."""
+        out = []
+        while len(out) < n:
+            f = self.pop(timeout)
+            if f is None:
+                if self._closed or timeout is not None:
+                    break
+                continue
+            out.append(f)
+        if len(out) < n:
+            return None
+        return np.stack(out)
+
+    def close(self) -> None:
+        with self._lock:
+            self._closed = True
+            self._not_empty.notify_all()
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._dq)
+
+
+def _device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+class _PinnedPair:
+    """Two pinned host buffers used in turn; a buffer is reallocated when
+    the batch's shape or dtype changes."""
+
+    def __init__(self):
+        self._bufs = [None, None]
+        self._turn = 0
+
+    def next(self, shape, dtype):
+        i = self._turn
+        self._turn ^= 1
+        buf = self._bufs[i]
+        if buf is None or buf.shape != shape or buf.dtype != dtype:
+            buf = self._bufs[i] = torch.empty(shape, dtype=dtype, pin_memory=True)
+        return i, buf
+
+
+class DeviceFeeder:
+    """Double-buffered host→device transfer: ``put`` returns the device
+    tensor for the *current* batch while the previous one is likely still
+    processing. On the card the batch goes through one of two pinned
+    buffers and a ``non_blocking`` copy on a side stream; the compute
+    stream waits on the copy's event, the host does not."""
+
+    def __init__(self, device="cuda"):
+        self.device = _device(device)
+        if self.device.type == "cuda":
+            self._stream = torch.cuda.Stream(self.device)
+            self._pinned = _PinnedPair()
+            self._copied = [None, None]  # the event of the last upload out of each buffer
+
+    def put(self, batch: np.ndarray) -> torch.Tensor:
+        if self.device.type != "cuda":
+            return to_device(batch, self.device)
+        host = to_device(batch, "cpu")
+        i, buf = self._pinned.next(host.shape, host.dtype)
+        if self._copied[i] is not None:
+            self._copied[i].synchronize()  # the upload that last read this buffer is done
+        buf.copy_(host)
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self._stream):
+            dev = buf.to(self.device, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self._stream)
+        self._copied[i] = done
+        compute.wait_event(done)
+        dev.record_stream(compute)
+        return dev
+
+
+class DeviceReadback:
+    """PBOManager-shaped async device→host readback: submit the current
+    output, receive the previous one as NumPy. Needs >=2 submissions
+    before data flows (PBOManager.cpp:137). On the card a submission
+    starts a copy into one of two pinned buffers on a side stream, behind
+    an event on the stream that computes the output; the buffer is read
+    (its event waited for, its contents copied out) one submission later,
+    before the copy after next can reuse it."""
+
+    def __init__(self):
+        self._prev = None  # (host tensor, event or None)
+        self._pinned = _PinnedPair()
+        self._side = None  # the download stream, made at the first CUDA tensor
+
+    def _start(self, t: torch.Tensor):
+        if not t.is_cuda:
+            return t, None
+        if self._side is None:
+            self._side = torch.cuda.Stream(t.device)
+        side = self._side
+        _, buf = self._pinned.next(t.shape, t.dtype)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(t.device))
+        with torch.cuda.stream(side):
+            side.wait_event(ready)
+            buf.copy_(t, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(side)
+        t.record_stream(side)
+        return buf, done
+
+    @staticmethod
+    def _finish(prev) -> np.ndarray:
+        host, done = prev
+        if done is None:
+            return host.numpy()
+        done.synchronize()
+        return host.numpy().copy()
+
+    def submit(self, device_array: torch.Tensor) -> Optional[np.ndarray]:
+        prev, self._prev = self._prev, self._start(device_array)
+        return None if prev is None else self._finish(prev)
+
+    def flush(self) -> Optional[np.ndarray]:
+        prev, self._prev = self._prev, None
+        return None if prev is None else self._finish(prev)
+
+
+def stream(
+    source_frames: Iterator[np.ndarray],
+    process: Callable[[torch.Tensor], torch.Tensor],
+    *,
+    batch: int = 8,
+    device="cuda",
+) -> Iterator[np.ndarray]:
+    """Drive a frame iterator through ``process`` in batches with one
+    batch of pipeline latency (feeder + readback composed). ``process``
+    takes and returns a tensor on ``device``."""
+    feeder = DeviceFeeder(device)
+    readback = DeviceReadback()
+    buf: list[np.ndarray] = []
+    for f in source_frames:
+        buf.append(f)
+        if len(buf) == batch:
+            out = readback.submit(process(feeder.put(np.stack(buf))))
+            buf.clear()
+            if out is not None:
+                yield from out
+    if buf:
+        out = readback.submit(process(feeder.put(np.stack(buf))))
+        if out is not None:
+            yield from out
+    tail = readback.flush()
+    if tail is not None:
+        yield from tail

@@ -22,6 +22,14 @@ separable grids take two f32 resampling matmuls; warped grids take the
 gather below on the CPU and the hand-written warp kernel
 (``ops/cuda/warp_sample``) on a CUDA tensor. Every index is wrapped or
 clipped into range before it reaches a gather.
+
+``mipmap_input`` textures sample a 2x2 box pyramid built on the fly:
+an affine grid has one level of detail, known on the host, and blends at
+most two separable samples (``sample2d_affine_mip``); a warped grid has a
+level of detail per pixel and blends one warped sample per pyramid level
+(``sample2d_warped_mip``: one warp-kernel launch per level on the card);
+``sample2d_lod`` is ``textureLod`` with a constant level. The blends are
+contracted (``fma32``) as the reference's jitted fusions contract them.
 """
 
 from __future__ import annotations
@@ -29,11 +37,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from retrocapture_tpu_torch.policy import fma32, ifloor32, to_device
+from retrocapture_tpu_torch.policy import fma32, fmaf32, ifloor32, to_device
 
 __all__ = [
     "sample2d",
     "sample2d_affine",
+    "sample2d_affine_mip",
+    "sample2d_warped_mip",
+    "sample2d_lod",
     "sample2d_separable",
     "sample2d_gather",
     "sample2d_requant",
@@ -348,7 +359,7 @@ def _axis_matrix_traced(coord, n: int, filter_linear: bool, wrap: str):
         if valid is not None:
             hit = hit & valid[:, None]
         return hit.to(torch.float32)
-    x = coord * n - 0.5
+    x = fma32(coord, n, -0.5)
     x0f = torch.floor(x)
     fx = x - x0f
     x0 = ifloor32(x)
@@ -449,7 +460,10 @@ def sample2d_gather(tex, u, v, *, filter_linear: bool, wrap_mode: str = "clamp_t
     sampled at per-pixel normalized ``u, v`` tensors of one shape S →
     ``[..., *S, C]``. This is the plain version of the CUDA warp kernel
     (ops/cuda/warp_sample), with the reference's operation order
-    (sampling.py:1200-1233)."""
+    (sampling.py:1200-1233) as its jitted gather rounds it on the CPU:
+    the LINEAR tap position ``u*W - 0.5`` and the three lerps are
+    fused multiply-adds (``fmaf32``: one rounding, as the kernel's
+    ``__fmaf_rn``)."""
     if tex.dim() == 4:
         return torch.stack(
             [sample2d_gather(t, u, v, filter_linear=filter_linear, wrap_mode=wrap_mode) for t in tex]
@@ -462,8 +476,8 @@ def sample2d_gather(tex, u, v, *, filter_linear: bool, wrap_mode: str = "clamp_t
         iy, vy = _wrap_index(iy, h, wrap_mode)
         return _gather(tex, iy, ix, vy, vx)
 
-    x = u * w - 0.5
-    y = v * h - 0.5
+    x = fmaf32(u, w, -0.5)
+    y = fmaf32(v, h, -0.5)
     fx = (x - torch.floor(x)).to(tex.dtype)
     fy = (y - torch.floor(y)).to(tex.dtype)
     x0 = ifloor32(x)
@@ -481,9 +495,152 @@ def sample2d_gather(tex, u, v, *, filter_linear: bool, wrap_mode: str = "clamp_t
 
     fx = fx[..., None]
     fy = fy[..., None]
-    top = t00 + (t01 - t00) * fx
-    bot = t10 + (t11 - t10) * fx
-    return top + (bot - top) * fy
+    top = fmaf32(t01 - t00, fx, t00)
+    bot = fmaf32(t11 - t10, fx, t10)
+    return fmaf32(bot - top, fy, top)
+
+
+def _box_downsample(tex):
+    """One mip level down: 2x2 box average (glGenerateMipmap's filter),
+    truncating odd trailing rows/cols like GL's floor(n/2) level sizing."""
+    h, w, _ = tex.shape
+    h2, w2 = max(h // 2, 1), max(w // 2, 1)
+    t = tex[: h2 * 2, : w2 * 2]
+    if h >= 2:
+        t = (t[0::2] + t[1::2]) * 0.5
+    if w >= 2:
+        t = (t[:, 0::2] + t[:, 1::2]) * 0.5
+    return t
+
+
+def _max_lod(h: int, w: int) -> int:
+    return int(np.floor(np.log2(max(min(h, w), 1))))
+
+
+def _pyramid(tex, levels: int) -> list:
+    """``[tex, level 1, ..., level levels]`` of the box pyramid."""
+    out = [tex]
+    for _ in range(levels):
+        out.append(_box_downsample(out[-1]))
+    return out
+
+
+def sample2d_affine_mip(
+    tex,
+    u_aff: tuple,
+    v_aff: tuple,
+    oh: int,
+    ow: int,
+    *,
+    filter_linear: bool,
+    wrap_mode: str = "clamp_to_edge",
+):
+    """GL_LINEAR_MIPMAP_LINEAR sampling for an affine output grid: the
+    texel footprint (and therefore the LOD) is a host-side constant, so
+    trilinear filtering is at most two separable samples of box-pyramid
+    levels blended by the LOD fraction (``mipmap_input#`` passes, e.g.
+    crt-hyllian-glow's 0.25x glow blur)."""
+    h, w, _ = tex.shape
+    # rho: max texels stepped per output pixel (GL LOD rule).
+    rho = max(abs(u_aff[0]) * w, abs(v_aff[1]) * h, 1e-12)
+    lod = float(np.log2(rho))
+    if lod <= 0.0 or not filter_linear:
+        return sample2d_affine(
+            tex, u_aff, v_aff, oh, ow, filter_linear=filter_linear, wrap_mode=wrap_mode
+        )
+    max_lod = _max_lod(h, w)
+    l0 = min(int(np.floor(lod)), max_lod)
+    l1 = min(l0 + 1, max_lod)
+    frac = min(max(lod - l0, 0.0), 1.0) if l1 > l0 else 0.0
+    levels = _pyramid(tex, l1)
+    s0 = sample2d_affine(
+        levels[l0], u_aff, v_aff, oh, ow, filter_linear=True, wrap_mode=wrap_mode
+    )
+    if frac == 0.0:
+        return s0
+    s1 = sample2d_affine(
+        levels[l1], u_aff, v_aff, oh, ow, filter_linear=True, wrap_mode=wrap_mode
+    )
+    return fma32(s1 - s0, frac, s0)
+
+
+def sample2d_warped_mip(
+    tex,
+    u,
+    v,
+    *,
+    filter_linear: bool,
+    wrap_mode: str = "clamp_to_edge",
+):
+    """Mipmapped sampling for WARPED 2D grids (``mipmap_input#`` passes
+    whose taps are data-dependent — the case the reference's GL stack
+    handles in hardware, ShaderEngine.cpp:1004-1036): per-pixel LOD from
+    screen-space finite differences (the quad-derivative analog), then
+    per-pixel trilinear across the box pyramid. Every reachable level is
+    sampled with the warped sampler (the warp kernel on the card, one
+    launch per level) and blended by its per-pixel weight."""
+    h, w, _ = tex.shape
+    u = to_device(u, tex.device).to(torch.float32)
+    v = to_device(v, tex.device).to(torch.float32)
+
+    def ddiff(a, axis):
+        d = torch.diff(a, dim=axis)
+        last = d.narrow(axis, d.shape[axis] - 1, 1)
+        return torch.cat([d, last], dim=axis)
+
+    dx = torch.maximum(torch.abs(ddiff(u, 1)) * w, torch.abs(ddiff(v, 1)) * h)
+    dy = torch.maximum(torch.abs(ddiff(u, 0)) * w, torch.abs(ddiff(v, 0)) * h)
+    floor_rho = torch.full((), 1e-12, dtype=torch.float32, device=tex.device)
+    rho = torch.maximum(torch.maximum(dx, dy), floor_rho)
+    max_lod = _max_lod(h, w)
+    lod = torch.clamp(torch.log2(rho), 0.0, float(max_lod))
+    if not filter_linear:
+        lod = torch.zeros_like(lod)  # NEAREST min filter: base level
+    l0 = torch.floor(lod)
+    frac = lod - l0
+
+    level = tex
+    out = None
+    first = None  # level 0's (sample, weight): contracted into level 1's add
+    for lev in range(max_lod + 1):
+        wt = torch.where(l0 == lev, 1.0 - frac, 0.0) + torch.where(l0 == lev - 1, frac, 0.0)
+        s = sample2d(level, u, v, filter_linear=filter_linear, wrap_mode=wrap_mode)
+        wt = wt[..., None]
+        if lev == 0:
+            first = (s, wt)
+            out = s * wt
+        elif lev == 1:
+            out = fma32(first[0], first[1], s * wt)
+        else:
+            out = fma32(s, wt, out)
+        if lev < max_lod:
+            level = _box_downsample(level)
+    return out
+
+
+def sample2d_lod(
+    tex,
+    u,
+    v,
+    lod: float,
+    *,
+    filter_linear: bool,
+    wrap_mode: str = "clamp_to_edge",
+):
+    """Explicit-LOD sampling (textureLod with a constant LOD) over a box
+    pyramid: trilinear between the two adjacent levels."""
+    h, w, _ = tex.shape
+    max_lod = _max_lod(h, w)
+    lod = min(max(lod, 0.0), float(max_lod))
+    l0 = int(np.floor(lod))
+    l1 = min(l0 + 1, max_lod)
+    frac = lod - l0 if l1 > l0 else 0.0
+    levels = _pyramid(tex, l1)
+    s0 = sample2d(levels[l0], u, v, filter_linear=filter_linear, wrap_mode=wrap_mode)
+    if frac == 0.0:
+        return s0
+    s1 = sample2d(levels[l1], u, v, filter_linear=filter_linear, wrap_mode=wrap_mode)
+    return fma32(s1 - s0, frac, s0)
 
 
 def sample2d(

@@ -322,3 +322,246 @@ def test_engine_checks_its_arguments():
         te.apply(torch.empty((1, 48, 64, 3), dtype=torch.uint8, device="meta"))
     with pytest.raises(ValueError):
         te.set_input_format("rgb565")
+
+
+# -- apply_streams, apply_u8, concrete FrameCount ---------------------------
+
+HISTORY_FEEDBACK_FC_GLSL = VERTEX + """
+varying vec2 vTexCoord;
+uniform sampler2D Texture;
+uniform sampler2D PrevTexture;
+uniform int FrameCount;
+uniform float Time;
+
+void main()
+{
+    vec4 c = texture2D(Texture, vTexCoord);
+    vec4 p = texture2D(PrevTexture, vTexCoord);
+    float phase = 0.5 + 0.5 * sin(float(FrameCount) * 0.37 + vTexCoord.y * 40.0);
+    float drift = fract(Time * 3.0 + vTexCoord.x);
+    gl_FragColor = vec4(0.6 * c.rgb + 0.3 * p.rgb * phase + 0.1 * drift, 1.0);
+}
+
+#endif
+"""
+
+
+def _streams(seed, s=3, t=4):
+    h, w = SRC_HW
+    return np.random.default_rng(seed).integers(0, 256, (s, t, h, w, 3), dtype=np.uint8)
+
+
+def test_multi_stream_temporal_matches_sequential():
+    """[S,T,H,W,C] streams, mirroring tests/test_engine.py's case: stream s
+    equals an engine of its own fed that stream alone (bit for bit within
+    the port), equals the JAX engine's apply_streams (the gate of _close),
+    and the 5-D branch of apply() is apply_streams."""
+    je, te = _engines(FEEDBACK)
+    frames = _streams(800)
+    for i in range(2):  # the per-stream feedback carries across applies
+        a = np.asarray(je.apply(frames))
+        b = te.apply(torch.from_numpy(frames))
+        assert tuple(b.shape) == (3, 4, VIEWPORT[1], VIEWPORT[0], 3) and b.dtype == torch.float32
+        _close(a, b.numpy(), "f32")
+    for si in range(3):
+        own = torch_pkg.Engine(viewport=VIEWPORT, device="cpu")
+        assert own.load_preset(FEEDBACK)
+        for i in range(2):
+            ref = own.apply(torch.from_numpy(frames[si]))
+        assert torch.equal(b[si], ref), f"stream {si} differs from an engine of its own"
+    key = SRC_HW + VIEWPORT + (3, "const")
+    st = te._states[key]
+    assert st.frame_count.tolist() == [8, 8, 8] and st.frame_count.dtype == torch.int32
+    assert tuple(st.feedback[0].shape) == (3,) + tuple(np.asarray(je._states[key].feedback[0]).shape[1:])
+    assert np.array_equal(st.feedback[0].numpy(), np.asarray(je._states[key].feedback[0]))
+    with pytest.raises(ValueError):
+        te.apply_streams(torch.from_numpy(frames[0]))
+
+
+def test_multi_stream_history_seeds_each_stream_from_its_own_first_frame():
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "history.glsl")
+        with open(path, "w") as f:
+            f.write(HISTORY_GLSL)
+        je, te = _engines(path)
+        frames = _streams(801, s=2, t=3)
+        a = np.asarray(je.apply_streams(frames))
+        b = te.apply_streams(torch.from_numpy(frames))
+        _close(a, b.numpy(), "f32")
+        for si in range(2):
+            own = torch_pkg.Engine(viewport=VIEWPORT, device="cpu")
+            assert own.load_preset(path)
+            assert torch.equal(b[si], own.apply(torch.from_numpy(frames[si])))
+    key = SRC_HW + VIEWPORT + (2, "const")
+    assert len(te._states[key].history) == 7 and te._states[key].history[0].shape[0] == 2
+
+
+def test_multi_stream_passthrough_without_a_preset():
+    je = jax_pkg.Engine(viewport=VIEWPORT)
+    te = torch_pkg.Engine(viewport=VIEWPORT, device="cpu")
+    frames = _streams(802, s=2, t=2)
+    a = np.asarray(je.apply_streams(frames))
+    b = te.apply_streams(torch.from_numpy(frames)).numpy()
+    assert b.shape == (2, 2, VIEWPORT[1], VIEWPORT[0], 3)
+    assert np.abs(a.astype(np.float64) - b).max() <= 2.4e-7  # one LINEAR matmul resize
+
+
+def test_state_checkpoint_resume(tmp_path):
+    """Mid-stream save/restore, mirroring tests/test_engine.py's case, with
+    single-stream and per-stream state in one checkpoint: the port's own
+    continuation is exact, the JAX engine's checkpoint continues in the
+    port, and chain_state_from_numpy takes the stream state as it is."""
+    je, te = _engines(FEEDBACK)
+    streams, single = _streams(803), _rgb(804, 2)
+    for e, wrap in ((je, np.asarray), (te, torch.from_numpy)):
+        e.apply(wrap(single))
+        e.apply_streams(wrap(streams))
+    te.save_state(str(tmp_path / "port"))
+    je.save_state(str(tmp_path / "jax.npz"))
+    nxt = _streams(805)
+    cont_a = te.apply_streams(torch.from_numpy(nxt))
+    cont_j = np.asarray(je.apply_streams(nxt))
+
+    for ckpt in ("port", "jax.npz"):
+        e2 = torch_pkg.Engine(viewport=VIEWPORT, device="cpu")
+        assert e2.load_preset(FEEDBACK)
+        e2.load_state(str(tmp_path / ckpt))
+        assert set(e2._states) == set(te._states) | {SRC_HW + VIEWPORT}
+        cont_b = e2.apply_streams(torch.from_numpy(nxt))
+        if ckpt == "port":
+            assert torch.equal(cont_a, cont_b)
+        _close(cont_j, cont_b.numpy(), "f32")
+
+    key = SRC_HW + VIEWPORT + (3, "const")
+    js_state = je._states[key]
+    direct = chain_state_from_numpy(
+        [np.asarray(h) for h in js_state.history],
+        {j: np.asarray(t) for j, t in js_state.feedback.items()},
+        np.asarray(js_state.frame_count),
+        np.asarray(js_state.time),
+        "cpu",
+    )
+    assert tuple(direct.frame_count.shape) == (3,) and direct.frame_count.dtype == torch.int32
+    assert tuple(direct.time.shape) == (3,) and direct.time.dtype == torch.float32
+    assert direct.feedback[0].shape[0] == 3
+    # The JAX engine's stream state, handed over directly, continues alike.
+    e3 = torch_pkg.Engine(viewport=VIEWPORT, device="cpu")
+    assert e3.load_preset(FEEDBACK)
+    e3._states[key] = direct
+    more = _streams(806)
+    _close(np.asarray(je.apply_streams(more)), e3.apply_streams(torch.from_numpy(more)).numpy(), "f32")
+
+
+def test_apply_u8_device_output():
+    """apply_u8 returns numpy uint8 equal to apply(output="u8") brought to
+    the host, within one level of the quantized f32 path (mirroring
+    tests/test_engine.py's case on feedback-ghost), and equal to the JAX
+    engine's apply_u8 within the gate of _close."""
+    je, te = _engines(FEEDBACK)
+    te2 = torch_pkg.Engine(viewport=VIEWPORT, device="cpu")
+    te3 = torch_pkg.Engine(viewport=VIEWPORT, device="cpu")
+    assert te2.load_preset(FEEDBACK) and te3.load_preset(FEEDBACK)
+    for i in range(2):
+        frames = _rgb(810 + i, 2)
+        got = te.apply_u8(frames)
+        assert isinstance(got, np.ndarray) and got.dtype == np.uint8 and got.shape == (2, VIEWPORT[1], VIEWPORT[0], 3)
+        np.testing.assert_array_equal(got, te2.apply(torch.from_numpy(frames), output="u8").numpy())
+        f32 = te3.apply(torch.from_numpy(frames)).numpy()
+        ref = np.round(np.clip(f32, 0, 1) * 255.0).astype(np.int32)
+        assert np.abs(got.astype(np.int32) - ref).max() <= 1
+        _close(np.asarray(je.apply_u8(frames)), got, "u8")
+    one = te.apply_u8(_rgb(812, 1)[0])
+    assert one.shape == (VIEWPORT[1], VIEWPORT[0], 3)
+    # Without a program: the quantized passthrough.
+    bare = torch_pkg.Engine(viewport=VIEWPORT, device="cpu")
+    jbare = jax_pkg.Engine(viewport=VIEWPORT)
+    _close(np.asarray(jbare.apply_u8(frames)), bare.apply_u8(frames), "u8")
+
+
+@pytest.mark.parametrize(
+    "error",
+    [
+        RuntimeError("resample_u8 kernel launch failed: cudaError 700"),
+        ValueError("resample_u8: C = 5 channels, the kernel takes 1 to 4"),
+        TypeError("resample_u8: tex must be float32"),
+    ],
+    ids=lambda e: type(e).__name__,
+)
+def test_apply_u8_does_not_swallow_a_kernel_failure(monkeypatch, error):
+    """A chain that fails to lower retreats to the quantized f32 path; an
+    error of the blit wrapper (a build or launch failure is a
+    RuntimeError, a refused input a ValueError or TypeError) is raised to
+    the caller by apply_u8 and by apply(output="u8"), and is not taken
+    for a lowering failure."""
+    from retrocapture_tpu_torch.runtime import engine as eng_mod
+
+    te = torch_pkg.Engine(viewport=VIEWPORT, device="cpu")
+    assert te.load_preset(FEEDBACK)
+
+    def boom(*a, **k):
+        raise error
+
+    monkeypatch.setattr(eng_mod, "blit_u8", boom)
+    for call in (te.apply_u8, lambda f: te.apply(f, output="u8")):
+        with pytest.raises(type(error), match="resample_u8"):
+            call(_rgb(813, 1))
+        assert te.shader_active and not te._lowering_failed and te.last_error is None
+
+
+@pytest.mark.parametrize("output", ["u8", "f32"])
+def test_concrete_frame_count_matches_jax(monkeypatch, output):
+    """RCTPU_CONCRETE_FC=1 through both engines (each module's flag set
+    here, as the environment variable sets it at import) on a shader that
+    reads FrameCount and Time and keeps history: FrameCount and Time
+    reach the evaluator as numpy scalars, Time as f32(0.016) * f32(fc)."""
+    from retrocapture_tpu.runtime import engine as jeng
+    from retrocapture_tpu_torch.graph import plan as tplan
+    from retrocapture_tpu_torch.runtime import engine as teng
+
+    monkeypatch.setattr(jeng, "_CONCRETE_FC", True)
+    monkeypatch.setattr(teng, "_CONCRETE_FC", True)
+    seen = []
+    real_init = tplan.PassContext.__init__
+
+    def spy(self, *a, **k):
+        real_init(self, *a, **k)
+        seen.append((self.frame_count, self.frame_time))
+
+    monkeypatch.setattr(tplan.PassContext, "__init__", spy)
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "fc.glsl")
+        with open(path, "w") as f:
+            f.write(HISTORY_FEEDBACK_FC_GLSL)
+        je, te = _engines(path)
+        for i in range(3):
+            a, b = _apply(je, te, _rgb(820 + i, 2), output)
+            _close(a, b, output)
+    assert te.shader_active and je.shader_active, (te.last_error, je.last_error)
+    assert [int(fc) for fc, _ in seen] == list(range(6))
+    for fc, tm in seen:
+        assert isinstance(fc, np.int32) and isinstance(tm, np.float32)
+        assert tm == np.float32(0.016) * np.float32(int(fc))
+    key = SRC_HW + VIEWPORT
+    assert int(te._states[key].frame_count) == 6 == int(np.asarray(je._states[key].frame_count))
+    assert float(te._states[key].time) == float(np.asarray(je._states[key].time))
+
+
+def test_frame_count_is_a_tensor_by_default(monkeypatch):
+    from retrocapture_tpu_torch.graph import plan as tplan
+
+    seen = []
+    real_init = tplan.PassContext.__init__
+    monkeypatch.setattr(tplan.PassContext, "__init__", lambda self, *a, **k: (real_init(self, *a, **k), seen.append(self.frame_count))[0])
+    te = torch_pkg.Engine(viewport=VIEWPORT, device="cpu")
+    assert te.load_preset(FEEDBACK)
+    te.apply(torch.from_numpy(_rgb(830, 2)))
+    assert len(seen) == 2 and all(isinstance(fc, torch.Tensor) for fc in seen)
+
+
+def test_param_mode_traced_is_refused():
+    te = torch_pkg.Engine(viewport=VIEWPORT, device="cpu")
+    te.set_param_mode("const")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 2"):
+        te.set_param_mode("traced")
+    with pytest.raises(ValueError):
+        te.set_param_mode("bogus")

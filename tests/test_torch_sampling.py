@@ -2,12 +2,17 @@
 sampler, on the same numpy inputs (made from a seed).
 
 * The gather path (warped grids) and NEAREST taps are expected
-  bit-equal to the JAX ``sample2d``, including NaN, +-inf and 1e10
-  coordinates (the ``_ifloor32`` edge semantics).
+  bit-equal to the JAX ``sample2d`` as ``jax.jit`` compiles it (the
+  engine's path: XLA's CPU code contracts the LINEAR tap position
+  ``u*W - 0.5`` and the lerps into FMAs, and the port's gather and warp
+  kernel do the same), including NaN, +-inf and 1e10 coordinates (the
+  ``_ifloor32`` edge semantics).
 * Separable LINEAR taps that lower to resampling matmuls may differ in
   the last ulp: the reference's XLA-CPU dot and torch's matmul
   accumulate the two nonzero taps with different FMA use. Tolerance
-  1e-6 on values in [0, 1] (measured: <= 1.2e-7).
+  1e-6 on values in [0, 1] (measured: <= 1.2e-7). The axis matrix of
+  tensor coordinates is compared as ``jax.jit`` builds it: its tap
+  position ``coord*n - 0.5`` is contracted there, and in the port.
 * The plain warp (the CPU side of the warp kernel's wrapper) against
   the Pallas kernel ``warp_sample_pallas(interpret=True)``: NEAREST
   bit-equal, LINEAR <= 2e-6 (the Pallas kernel blends x taps as weights
@@ -15,6 +20,7 @@ sampler, on the same numpy inputs (made from a seed).
   differ by up to 1.8e-6).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -67,12 +73,28 @@ def test_ifloor32_matches_reference():
 def test_gather_path_matches_jax_bit_for_bit(linear, wrap):
     tex = _tex(1)
     u, v = _warped_uv(2)
-    want = np.asarray(
-        js.sample2d(jnp.asarray(tex), jnp.asarray(u), jnp.asarray(v), filter_linear=linear, wrap_mode=wrap)
-    )
+    jitted = jax.jit(lambda t, a, b: js.sample2d(t, a, b, filter_linear=linear, wrap_mode=wrap))
+    want = np.asarray(jitted(jnp.asarray(tex), jnp.asarray(u), jnp.asarray(v)))
     got = _np(ts.sample2d(torch.from_numpy(tex), torch.from_numpy(u), torch.from_numpy(v), filter_linear=linear, wrap_mode=wrap))
     assert got.shape == want.shape == (16, 48, 4)
     assert np.array_equal(got, want, equal_nan=True)
+
+
+@pytest.mark.parametrize("wrap", WRAPS)
+@pytest.mark.parametrize("hw", [(1, 2), (3, 4), (7, 10)], ids=lambda hw: f"{hw[0]}x{hw[1]}")
+def test_gather_path_matches_jax_at_pyramid_top_sizes(hw, wrap):
+    """The textures a warped mip tap reaches at its upper levels: one to a
+    few texels, where every tap wraps or clamps (the +1 tap at 1x2 always
+    does), at coordinates several texture widths outside [0, 1]. LINEAR
+    and NEAREST, bit-equal to the jitted reference."""
+    tex = _tex(5, h=hw[0], w=hw[1])
+    u, v = _warped_uv(6)
+    u, v = (u - np.float32(0.5)) * np.float32(9.0), (v - np.float32(0.5)) * np.float32(9.0)
+    for linear in (False, True):
+        jitted = jax.jit(lambda t, a, b: js.sample2d(t, a, b, filter_linear=linear, wrap_mode=wrap))
+        want = np.asarray(jitted(jnp.asarray(tex), jnp.asarray(u), jnp.asarray(v)))
+        got = _np(ts.sample2d(torch.from_numpy(tex), torch.from_numpy(u), torch.from_numpy(v), filter_linear=linear, wrap_mode=wrap))
+        assert np.array_equal(got, want, equal_nan=True), (linear, np.nanmax(np.abs(got - want)))
 
 
 @pytest.mark.parametrize("wrap", WRAPS)
@@ -134,7 +156,8 @@ def test_affine_and_tensor_separable_match_jax(linear, wrap):
     # Tensor (traced in JAX) per-axis coordinates, incl. NaN/inf.
     ur = np.concatenate([(np.arange(30) + 0.5) / 30 * 1.4 - 0.2, SPECIALS[:6]]).astype(np.float32)
     vc = np.concatenate([(np.arange(20) + 0.5) / 20 * 0.8 + 0.1, SPECIALS[3:6]]).astype(np.float32)
-    want = np.asarray(js.sample2d_separable(jnp.asarray(tex), jnp.asarray(ur), jnp.asarray(vc), filter_linear=linear, wrap_mode=wrap))
+    jitted = jax.jit(lambda t, a, b: js.sample2d_separable(t, a, b, filter_linear=linear, wrap_mode=wrap))
+    want = np.asarray(jitted(jnp.asarray(tex), jnp.asarray(ur), jnp.asarray(vc)))
     got = _np(ts.sample2d_separable(torch.from_numpy(tex), torch.from_numpy(ur), torch.from_numpy(vc), filter_linear=linear, wrap_mode=wrap))
     assert np.array_equal(np.isnan(got), np.isnan(want))
     diff = np.abs(np.nan_to_num(got) - np.nan_to_num(want))

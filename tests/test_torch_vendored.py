@@ -4,11 +4,14 @@ to their originals, and the port never imports jax or retrocapture_tpu.
 ``retrocapture_tpu/__init__.py`` imports jax, so even its jax-free
 modules cannot be imported from the port on a machine without jax: they
 are copied. Each copy may differ from its original only in the package
-name on its import lines.
+name on its import lines, and in the one place where the original names
+the directory its shader corpus is mounted at (``utils/scanner.py``; the
+port looks for ``shaders_glsl`` in the working directory).
 """
 
 import ast
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -27,7 +30,14 @@ COPIED = [
     "graph/scale.py",
     "utils/logging.py",
     "utils/paths.py",
+    "utils/metrics.py",
+    "utils/scanner.py",
+    "io/__init__.py",
+    "io/testpattern.py",
+    "io/native.py",
+    "runtime/config.py",
 ]
+_CORPUS_DIR = re.compile(r'Path\("[^"]*shaders_glsl"\)')
 
 
 def _normalised(path: pathlib.Path, pkg: str) -> list[str]:
@@ -36,7 +46,7 @@ def _normalised(path: pathlib.Path, pkg: str) -> list[str]:
         stripped = line.lstrip()
         if stripped.startswith(("from ", "import ")):
             line = line.replace(pkg + ".", "PKG.").replace(pkg + " ", "PKG ")
-        out.append(line)
+        out.append(_CORPUS_DIR.sub("Path(CORPUS)", line))
     return out
 
 
@@ -69,6 +79,10 @@ COPIED_DEFS = [
         "ops/cuda/xbr_epilogue.py",
         ["_AO", "_BO", "_CO", "_AX", "_BX", "_CX", "_AY", "_BY", "_CY", "_D4", "_DL", "_DU"],
     ),
+    ("io/queue.py", "io/queue.py", ["FrameQueue"]),
+    ("ops/sampling.py", "ops/sampling.py", ["_wrap_index_np", "_axis_matrix", "_separable_rows", "_axis_stride"]),
+    ("runtime/engine.py", "runtime/engine.py", ["_grids", "_npz_path", "MAX_FRAME_HISTORY"]),
+    ("runtime/pipeline.py", "runtime/pipeline.py", ["ImageSettings"]),
 ]
 
 
@@ -171,3 +185,26 @@ def test_no_source_line_imports_jax():
                 f"{path.relative_to(REPO)}:{n}: {s}"
             )
     assert not (REPO / "chip_smoke.py").read_text().count("import jax")
+
+
+def test_cli_keeps_the_reference_flags():
+    """The port's command line takes every flag of the reference's, with
+    the same defaults (but the shader root, which names no mount)."""
+    from retrocapture_tpu import cli as jcli
+    from retrocapture_tpu_torch import cli as tcli
+
+    def flags(parser):
+        return {
+            a.option_strings[0]: (a.default, a.choices, a.type, type(a).__name__)
+            for a in parser._actions
+            if a.option_strings and a.option_strings[0] != "--shader-root"
+        }
+
+    assert flags(tcli.build_parser()) == flags(jcli.build_parser())
+
+
+def test_native_copy_points_at_the_repo_root():
+    from retrocapture_tpu.io import native as jn
+    from retrocapture_tpu_torch.io import native as tn
+
+    assert tn._ROOT == jn._ROOT == REPO and tn._SO == jn._SO
