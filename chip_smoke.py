@@ -9,10 +9,11 @@ its plain torch version on the card, drives the main path
 (``Engine.load_preset`` + ``Engine.apply``) at full size for the
 feedback-ghost-nv12 slice, a warped curvature pass, the crt-mattias hand
 kernel (default blur, ``RCTPU_BLUR=v1`` and ``RCTPU_MATTIAS=preconv``),
-feedback-ghost under ``RCTPU_XPHASE=on`` and the xbr-lv2 hand kernel, and
+feedback-ghost under ``RCTPU_XPHASE=on`` and the xbr-lv2 hand kernel,
 the program's front door (a ``FramePipeline`` fed through the frame queue's
 ``stream``, ``apply_streams``, ``apply_u8`` and the max-resolution clamp, two
-``mipmap_input`` presets, and the command line in process),
+``mipmap_input`` presets, and the command line in process), and the ntsc
+2-phase and nnedi3 entries of the kernel library through their stand-ins,
 compares them with the port's own CPU run, counts the work that left
 shared memory for global (the blur kernel's wide tiles, the blit's and the
 xbr epilogue's general-path units: none may at the main paths'
@@ -56,6 +57,10 @@ CLAMP_SRC_HW = (960, 1280)  # a source above the clamp ...
 CLAMP_TO = (640, 480)  # ... of set_max_shader_resolution (W, H)
 CLI_FRAMES = 16
 WINDOWS = 3  # repeated timing windows of the stream and streams phases
+NTSC_BATCH = 128
+NTSC_WIDTH = 1280  # ntsc-320px's pass 0: 4 x 320 wide (bench.py:47)
+NNEDI3_BATCH = 32
+VARIANT_BATCH = 8  # one apply of each other variant of the two families
 DEV = "cuda"  # the card; the checks below never fall back to the CPU
 
 # The card's published peaks (H100 SXM, dense, at 700 W): a kernel's bound
@@ -63,6 +68,7 @@ DEV = "cuda"  # the card; the checks below never fall back to the CPU
 # over the f32 rate.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+PEAK_F64_MATMUL_S = 67e12  # FP64 on the tensor cores (the data sheet); what an f64 matmul runs on
 
 # (src_h, src_w, viewport) of the xbr kernel checks beyond the main path's
 # own shape: x ratios 2 and 3, an output width that is no integer ratio
@@ -785,7 +791,7 @@ def phase_mattias(gen, Engine, tmp):
     # subcell coordinates built as blur_preconv builds them, held
     # bit-equal (NEAREST) to the plain version.
     p = _glsl_pow(frames[0].float() * (1.0 / 255.0), 2.2)
-    u, v = mattias_uv(VIEWPORT[0], VIEWPORT[1], 0.5, DEV)
+    u, v = mattias_uv(VIEWPORT[0], VIEWPORT[1], 0.5, DEV, cross=True)  # the blur's own coordinates
     shapes = []
     for ch, q, u2, v2 in group_samples(p, u, v, mattias_groups(*VIEWPORT)):
         got = ws.warp_sample(q, u2, v2, filter_linear=False, wrap_mode="clamp_to_edge")
@@ -1254,6 +1260,209 @@ def phase_cli(tmp):
     del out
 
 
+@contextlib.contextmanager
+def engaged(names):
+    """Count, for the duration of a block, the calls of the kernel
+    library's entries ``names`` that engaged (returned a frame) and that
+    declined."""
+    from retrocapture_tpu_torch.graph import kernels as tk
+
+    counts = {"engaged": 0, "declined": 0}
+    originals = {n: tk._REGISTRY[n] for n in names}
+
+    def wrap(fn):
+        def entry(ctx, sh):
+            out = fn(ctx, sh)
+            counts["engaged" if out is not None else "declined"] += 1
+            return out
+
+        return entry
+
+    tk._REGISTRY.update({n: wrap(fn) for n, fn in originals.items()})
+    try:
+        yield counts
+    finally:
+        tk._REGISTRY.update(originals)
+
+
+def _library_slice(gen, Engine, phase, label, path, names, batch, passes, variants):
+    """A kernel-library family through Engine.apply at 1080p: 3 applies at
+    ``batch`` (every pass through its entry, one blit launch an apply),
+    CUDA against the port's CPU run on 2 frames, one apply at
+    VARIANT_BATCH of each (label, preset) in ``variants`` (also against
+    the CPU run). Returns the engine, the frames, the blit launches and
+    the blit's source shape."""
+    import torch
+
+    from retrocapture_tpu_torch.ops.cuda import resample as rs
+
+    h, w = SRC_HW
+    vw, vh = VIEWPORT
+    frames = torch.randint(0, 256, (batch, h, w, 3), generator=gen, device=DEV, dtype=torch.uint8)
+    e = Engine(viewport=VIEWPORT, device=DEV)
+    check(e.load_preset(str(path)), f"{label}: load_preset: {e.last_error}")
+    blits = []
+    blit_kernel = rs.blit_u8
+
+    def blit_rec(tex, dst_w, dst_h):
+        blits.append(tuple(tex.shape))
+        return blit_kernel(tex, dst_w, dst_h)
+
+    from retrocapture_tpu_torch.runtime import engine as engine_module
+
+    rs.LAUNCHES = 0
+    rs.general_blocks(reset=True)
+    engine_module.blit_u8 = blit_rec
+    try:
+        with engaged(names) as calls:
+            for i in range(3):
+                out = e.apply(frames, output="u8")
+                torch.cuda.synchronize()
+                _engine_ok(e, f"{label} apply {i}")
+                check(tuple(out.shape) == (batch, vh, vw, 3) and out.dtype == torch.uint8
+                      and out.device.type == torch.device(DEV).type, f"{label}: {out.dtype} {tuple(out.shape)} on {out.device}")
+    finally:
+        engine_module.blit_u8 = blit_kernel
+    launches, general = rs.LAUNCHES, rs.general_blocks(reset=True)
+    check(calls == {"engaged": 3 * batch * passes, "declined": 0}, f"{label}: entries {calls}, want "
+          f"{3 * batch * passes} engaged")
+    check(launches == 3 and len(blits) == 3, f"{label}: {launches} resample_u8 launches, want 3")
+    check(general == 0, f"{label}: {general} resample_u8 units of work took the general path")
+    check(int(e._states[(h, w) + VIEWPORT].frame_count) == 3 * batch, f"{label}: frame count not carried")
+    check(float(out.float().std()) > 5.0, f"{label}: a flat output")
+    res = {}
+    for name, vpath, dev in [(label, path, DEV)] + [(n, vp, DEV) for n, vp in variants]:
+        outs = []
+        for d in (dev, "cpu"):
+            ev = Engine(viewport=VIEWPORT, device=d)
+            check(ev.load_preset(str(vpath)), f"{name} {d}: load_preset: {ev.last_error}")
+            with engaged(names) as vcalls:
+                n = VARIANT_BATCH if (d != "cpu" and name != label) else 2
+                o = ev.apply(frames[:n].to(d), output="u8")
+            _engine_ok(ev, f"{name} {d}")
+            check(vcalls == {"engaged": n * passes, "declined": 0}, f"{name} {d}: entries {vcalls}")
+            outs.append(o[:2].cpu())
+        res[name] = _cmp_u8(outs[0], outs[1], f"{name} cuda vs cpu")
+    say(phase, f"{label} {batch}x{h}x{w} rgb -> {vh}x{vw} u8, 3 applies: ok (entries engaged {calls['engaged']}, "
+        f"blit from {blits[0][1:3]}, resample_u8 launches {launches}, general-path units {general}; cuda vs cpu on 2 "
+        f"frames: " + "; ".join(f"{n} max {d} step, {f:.2e}" for n, (d, f) in res.items())
+        + f"; variants at batch {VARIANT_BATCH})")
+    return e, frames, launches, blits[0]
+
+
+def _slice_rate(phase, label, e, frames, card):
+    """frames/s over 2 applies after warm-up, the device's busy time of one
+    apply (torch.profiler) and its idle share."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        e.apply(frames, output="u8")
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / 2
+    dev_ms = device_ms(lambda: e.apply(frames, output="u8"), 1)
+    say(phase, f"{label} slice: {len(frames) / dt:.1f} frames/s at batch {len(frames)} ({dt * 1e3:.1f} ms per apply; "
+        f"device busy {dev_ms:.1f} ms of it, idle {100.0 * (1.0 - dev_ms / (dt * 1e3)):.1f}%)  ({card})")
+
+
+def _host_profile(phase, label, e, frames):
+    """The four functions with the most own host time in an 8-frame apply
+    (cProfile), per frame."""
+    import torch
+
+    prof = cProfile.Profile()
+    prof.enable()
+    e.apply(frames[:8], output="u8")
+    torch.cuda.synchronize()
+    prof.disable()
+    top = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][2])[:4]
+    say(phase, f"{label} host profile of an 8-frame apply, by own time: " + "; ".join(
+        f"{fn[2]} ({Path(fn[0]).name}:{fn[1]}) {st[2] * 1e3 / 8:.1f} ms/frame" for fn, st in top))
+
+
+def _product_ms(fn, iters=50):
+    fn()
+    return (event_ms(fn, iters) + event_ms(fn, iters)) / 2
+
+
+def phase_ntsc(gen, Engine, tmp, card):
+    """ntsc-320px through the stand-ins (tests/_ntsc_standin.py): the
+    composite + gamma chain, pass 0 at 1280 wide, the last pass at 640 x
+    viewport height, the 640x1080 -> 1080p blit (x ratio 3); one apply of
+    svideo, plain and -linear; the band products' time beside their bound.
+    Returns the blit launches and the blit kernel's largest distance from
+    its plain version."""
+    import torch
+
+    from _ntsc_standin import PASS1, PASS2, write_chain
+    from retrocapture_tpu_torch.graph import kernels as tk
+
+    h, _ = SRC_HW
+    vw, vh = VIEWPORT
+    names = list(PASS1.values()) + list(PASS2.values())
+    variants = [(f"ntsc {a} + {b}", write_chain(tmp, NTSC_WIDTH, a, b))
+                for a, b in (("svideo", "gamma"), ("composite", "plain"), ("composite", "linear"))]
+    e, frames, launches, src = _library_slice(
+        gen, Engine, "21", "ntsc-320px composite + gamma", write_chain(tmp, NTSC_WIDTH), names, NTSC_BATCH, 2, variants)
+    check(src == (NTSC_BATCH, vh, NTSC_WIDTH // 2, 3), f"ntsc: blit from {src}")
+    kd = check_blit(knife_tex(gen, (VARIANT_BATCH, vh, NTSC_WIDTH // 2, 3), DEV), vh, vw, "21")
+    _slice_rate("21", "ntsc-320px", e, frames, card)
+    _host_profile("21", "ntsc-320px", e, frames)
+    # The band product of one frame, as the entry runs it (the FIR at the
+    # source rows, three channels of the [h, 1280, 4] pass-0 output).
+    w, ow = NTSC_WIDTH, NTSC_WIDTH // 2
+    ml = torch.from_numpy(tk._ntsc_band_matrix(tk._NTSC2_LUMA, w, ow)).to(DEV)
+    mc = torch.from_numpy(tk._ntsc_band_matrix(tk._NTSC2_CHROMA, w, ow)).to(DEV)
+    tex = torch.rand((h, w, 4), generator=gen, device=DEV)
+    ms = _product_ms(lambda: (tex[..., 0] @ ml, tex[..., 1] @ mc, tex[..., 2] @ mc))
+    # Counted as the reference's band work: 2 h w ow per channel; bytes:
+    # three input planes, two matrices, three output planes.
+    b_ms, b_by = bound(4 * (3 * h * w + 2 * w * ow + 3 * h * ow), 3 * 2 * h * w * ow)
+    say("21", f"ntsc band product, one frame ([{h},{w}] @ [{w},{ow}] x 3 channels, TF32 off): {ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}); {NTSC_BATCH} such products an apply  ({card})")
+    return launches, kd, (ms, b_ms, b_by)
+
+
+def phase_nnedi3(gen, Engine, tmp, card):
+    """nnedi3 through the stand-ins (tests/_nnedi3_standin.py): the nns64
+    -rgb chain 240x320 -> 480x320 -> 480x640 and the 480x640 -> 1080p
+    blit; one apply of the nns16 -luma chain; the two contractions' time
+    beside their bound. Returns as phase_ntsc."""
+    import torch
+
+    from _nnedi3_standin import NAMES, write_chain
+
+    h, w = SRC_HW
+    vw, vh = VIEWPORT
+    d64, d16 = Path(tmp) / "nnedi3-64", Path(tmp) / "nnedi3-16"
+    d64.mkdir(exist_ok=True)
+    d16.mkdir(exist_ok=True)
+    variants = [("nnedi3 nns16 -luma", write_chain(str(d16), 16, "luma", height=2 * h))]
+    e, frames, launches, src = _library_slice(
+        gen, Engine, "22", "nnedi3 nns64 -rgb", write_chain(str(d64), 64, "rgb", height=2 * h), NAMES, NNEDI3_BATCH, 2,
+        variants)
+    check(src == (NNEDI3_BATCH, 2 * h, 2 * w, 3), f"nnedi3: blit from {src}")
+    kd = check_blit(knife_tex(gen, (VARIANT_BATCH, 2 * h, 2 * w, 3), DEV), vh, vw, "22")
+    _slice_rate("22", "nnedi3 nns64 -rgb", e, frames, card)
+    _host_profile("22", "nnedi3 nns64 -rgb", e, frames)
+    # The entry's contraction as it runs it: [2 nns, 32] @ [32, h w c] in
+    # f64 per pass, one frame; its bound at f64 bytes and the f64 matmul
+    # rate.
+    out = []
+    for label, n in (("pass1", h * w * 3), ("pass2", 2 * h * w * 3)):
+        wt = torch.randn((128, 32), generator=gen, device=DEV).double()
+        taps = torch.rand((32, n), generator=gen, device=DEV).double()
+        ms = _product_ms(lambda: wt @ taps)
+        t_bytes = 8 * (32 * n + 128 * 32 + 128 * n) / PEAK_BYTES_S * 1e3
+        t_ops = 2 * 128 * 32 * n / PEAK_F64_MATMUL_S * 1e3
+        b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        out.append((ms, b_ms, b_by))
+        say("22", f"nnedi3 nns64 contraction, one frame's {label} ([128,32] @ [32,{n}] in f64): {ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by})  ({card})")
+    return launches, kd, out
+
+
 def main() -> int:
     if not (REPO / "retrocapture_tpu_torch" / "__init__.py").is_file():
         raise SystemExit("chip_smoke: retrocapture_tpu_torch is not beside this script")
@@ -1463,14 +1672,7 @@ def main() -> int:
         say("15", f"xbr-lv2 slice: {XBR_BATCH / xdt:.1f} frames/s at batch {XBR_BATCH} "
             f"({xdt * 1e3:.1f} ms per apply; device busy {xdev:.1f} ms of it, idle "
             f"{100.0 * (1.0 - xdev / (xdt * 1e3)):.1f}%)  ({card})")
-        prof = cProfile.Profile()
-        prof.enable()
-        xeng.apply(xframes[:8], output="u8")
-        torch.cuda.synchronize()
-        prof.disable()
-        top = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][2])[:4]
-        say("15", "xbr-lv2 host profile of an 8-frame apply, by own time: " + "; ".join(
-            f"{fn[2]} ({Path(fn[0]).name}:{fn[1]}) {st[2] * 1e3 / 8:.1f} ms/frame" for fn, st in top))
+        _host_profile("15", "xbr-lv2", xeng, xframes)
         import torch.nn.functional as F
 
         # One PyTorch call computing the kernel's function on the same
@@ -1504,6 +1706,35 @@ def main() -> int:
         launches["resample_u8"] += u8_launches + mip_rs
         launches["warp_sample"] += mip_ws
         say("16-20", f"main-path launches: {launches}")
+
+        # Phases 21-22: the ntsc 2-phase and nnedi3 entries of the kernel
+        # library, each path's blit launches counted from zero.
+        ntsc_rs, ntsc_kd, ntsc_band = phase_ntsc(gen, Engine, td, card)
+        nn_rs, nn_kd, nn_prod = phase_nnedi3(gen, Engine, td, card)
+        launches["resample_u8"] += ntsc_rs + nn_rs
+        rs_err = max(rs_err, ntsc_kd, nn_kd)
+        say("21-22", f"main-path launches: {launches}")
+        # The blit kernel at the two new geometries, and the library call
+        # at every timed blit shape (F.interpolate, f32 out, no u8 pack).
+        blit_shapes = {
+            "ntsc": (NTSC_BATCH, vh, NTSC_WIDTH // 2), "nnedi3": (NNEDI3_BATCH, 2 * h, 2 * w),
+            "1080p": (SLICE_BATCH, vh, vw), "snes": (SLICE_BATCH,) + SNES_HW,
+        }
+        new_blits = {}
+        for name, (b, bh, bw) in blit_shapes.items():
+            btex = knife_tex(gen, (b, bh, bw, 3), DEV)
+            lib_ms = _product_ms(lambda: F.interpolate(btex.permute(0, 3, 1, 2), size=(vh, vw), mode="bilinear",
+                                                       align_corners=False), 3)
+            if name in ("ntsc", "nnedi3"):
+                bay, bax = rs.blit_matrices(bh, bw, vw, vh)
+                k_ms = launch_ms("resample_u8", lambda: rs.resample_u8(btex, bay, bax), 10)
+                new_blits[name] = (k_ms, blit_bound(btex, vh, vw), lib_ms)
+                say("21-22", f"resample_u8 [{b},{bh},{bw},3] -> [{b},{vh},{vw},3] ({name}'s blit): kernel {k_ms:.3f} ms, "
+                    f"bound {new_blits[name][1][0]:.4f} ms, F.interpolate {lib_ms:.3f} ms  ({card})")
+            else:
+                new_blits[name] = (None, None, lib_ms)
+                say("21-22", f"F.interpolate bilinear [{b},3,{bh},{bw}] -> {vh}x{vw} f32: {lib_ms:.3f} ms  ({card})")
+            del btex
 
     # Each kernel's bound at its timed shape: inputs read once, outputs
     # written once; f32 operations counted per output value or pixel.
@@ -1552,9 +1783,24 @@ def main() -> int:
     # Beside the keys every entry has: the blit at its other two timed
     # shapes, and the general-path counts of the main paths (checked 0).
     kernels[0]["other_shapes"] = [
-        {"shape": f"[{SLICE_BATCH},{vh},{vw},3] -> same", "ms": fg_ms, "plain_ms": fg_plain, "bound_ms": fg_bound[0]},
+        {"shape": f"[{SLICE_BATCH},{vh},{vw},3] -> same", "ms": fg_ms, "plain_ms": fg_plain, "bound_ms": fg_bound[0],
+         "library_ms": new_blits["1080p"][2]},
         {"shape": f"[{SLICE_BATCH},{SNES_HW[0]},{SNES_HW[1]},3] -> [{SLICE_BATCH},{vh},{vw},3]", "ms": sn_ms,
-         "plain_ms": sn_plain, "bound_ms": sn_bound[0]},
+         "plain_ms": sn_plain, "bound_ms": sn_bound[0], "library_ms": new_blits["snes"][2]},
+    ] + [
+        {"shape": f"[{b},{bh},{bw},3] -> [{b},{vh},{vw},3] ({name})", "ms": new_blits[name][0],
+         "bound_ms": new_blits[name][1][0], "library_ms": new_blits[name][2]}
+        for name, (b, bh, bw) in blit_shapes.items() if name in ("ntsc", "nnedi3")
+    ]
+    # The library-call sections of the two new families (no kernel of
+    # their own: torch.matmul with TF32 off), one frame each.
+    kernels[0]["library_sections"] = [
+        {"name": "ntsc band product", "ms": ntsc_band[0], "bound_ms": ntsc_band[1], "bound_by": ntsc_band[2],
+         "per_apply": NTSC_BATCH},
+        {"name": "nnedi3 contraction pass1", "ms": nn_prod[0][0], "bound_ms": nn_prod[0][1], "bound_by": nn_prod[0][2],
+         "per_apply": NNEDI3_BATCH},
+        {"name": "nnedi3 contraction pass2", "ms": nn_prod[1][0], "bound_ms": nn_prod[1][1], "bound_by": nn_prod[1][2],
+         "per_apply": NNEDI3_BATCH},
     ]
     kernels[0]["general_path_units"] = rs_general
     kernels[-1]["general_path_blocks"] = xe.general_blocks()

@@ -1,14 +1,19 @@
-"""Hand-written kernel-library entries: the crt-mattias and xbr-lv2 passes.
+"""Hand-written kernel-library entries: crt-mattias, xbr-lv2, the ntsc
+2-phase passes and nnedi3.
 
-The port of the crt-mattias and xbr-lv2 parts of
-``retrocapture_tpu/graph/kernels.py``. The generic evaluator lowers any
-GLSL; an entry here replaces one shader's whole fragment with a direct
-formulation (torch sections around a CUDA kernel), selected by the
-shader's basename through ``find_kernel``. An entry checks its own
-feasibility and returns None to leave the pass to the evaluator.
-``RCTPU_KERNELS=off`` disables the library; otherwise an entry runs on
-either device, taking its kernels' plain versions on the CPU (the
-reference's interpret mode).
+The port of ``retrocapture_tpu/graph/kernels.py``: every entry of its
+registry (19 shader basenames). The generic evaluator lowers any GLSL; an
+entry here replaces one shader's whole fragment with a direct formulation
+(torch sections around a CUDA kernel, or torch alone where the reference
+has no Pallas kernel: the ntsc and nnedi3 entries, whose products are f32
+matmuls with TF32 off), selected by the shader's basename through
+``find_kernel``. An entry checks its own feasibility and returns None to
+leave the pass to the evaluator, exactly where the reference's entry
+declines. ``RCTPU_KERNELS=off`` disables the library; otherwise an entry
+runs on either device, taking its kernels' plain versions on the CPU (the
+reference's interpret mode). The reference's ntsc pass-2 entry declines on
+a CPU outside interpret mode (the evaluator there is its GL-parity path);
+the port's runs on both devices, like its other entries.
 
 Numerics follow the reference as ``jax.jit`` compiles it: XLA's CPU
 code contracts ``a*b + c`` into one rounding where the tests
@@ -20,8 +25,8 @@ f32 ``sin`` is ``policy.sinf32``: the C library's ``sinf`` that XLA's CPU
 code calls, repeated in float64 tensor ops, so that the CPU and CUDA
 runs of the port agree with it and with each other.
 
-The ntsc 2-phase and nnedi3 entries of the reference are not ported yet
-(ROADMAP queue 1).
+The pows take XLA's own ``log`` and ``exp`` (``policy.logf32``,
+``policy.expf32``), as the jitted reference does.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from retrocapture_tpu_torch.policy import fma32, sinf32
+from retrocapture_tpu_torch.policy import expf32, fma32, fmaf32, logf32, sinf32
 
 __all__ = ["find_kernel"]
 
@@ -40,10 +45,14 @@ _F = np.float32
 
 
 def _glsl_pow(x, p: float):
-    """Non-integer pow exactly as the evaluator lowers it
-    (frontend/builtins._b_pow): exp2(p * log2(x)); NaN for x<0 flushes
-    to 0 at the RGBA8 store."""
-    return torch.exp2(float(_F(p)) * torch.log2(x))
+    """Non-integer pow as the reference's kernels write it, exp2(p *
+    log2(x)), in the form jitted XLA computes: its simplifier folds the
+    two base-2 conversions into one constant, ``exp(log(x) * f32(f32(p *
+    f32(1/ln 2)) * f32(ln 2)))``, with XLA's own ``log`` and ``exp``
+    (``policy.logf32``, ``policy.expf32``). NaN for x<0 flushes to 0 at
+    the RGBA8 store."""
+    c = _F(_F(_F(p) * _F(1.0 / np.log(2.0))) * _F(np.log(2.0)))
+    return expf32(logf32(x) * float(c))
 
 
 def _rand_dt_sn(co_u, co_v):
@@ -62,12 +71,13 @@ def _rand(co_u, co_v):
     return s - torch.floor(s)
 
 
-def _mattias_curve(u, v):
+def _mattias_curve(u, v, du=None, dv=None):
     """crt-mattias.glsl curve(): barrel distortion; uv.y's factor uses
     the already-updated uv.x (statement order). ``1 + t*t`` and the
-    affine tail contract as jitted XLA contracts them."""
-    x = (u - 0.5) * 2.0 * float(_F(1.1))
-    y = (v - 0.5) * 2.0 * float(_F(1.1))
+    affine tail contract as jitted XLA contracts them. ``du``/``dv``, when
+    given, stand for ``u - 0.5``/``v - 0.5`` (see mattias_uv)."""
+    x = (u - 0.5 if du is None else du) * 2.0 * float(_F(1.1))
+    y = (v - 0.5 if dv is None else dv) * 2.0 * float(_F(1.1))
     ty = torch.abs(y) * float(_F(1.0 / 5.0))
     x = x * fma32(ty, ty, 1.0)
     tx = torch.abs(x) * float(_F(1.0 / 4.0))
@@ -150,39 +160,97 @@ def _pixel_grid(ow: int, oh: int, device):
     return xg, yg
 
 
-def mattias_uv(ow: int, oh: int, curvature: float, device):
+def mattias_uv(ow: int, oh: int, curvature: float, device, cross: bool = False):
     """The base warp of the fragment: q -> mix(q, curve(q), CURVATURE)
-    over the output pixel centres, [oh, ow] f32 each."""
+    over the output pixel centres, [oh, ow] f32 each.
+
+    ``cross``: each output as the jitted reference computes it where a
+    fusion produces that output alone (the blur's coordinates, the
+    scanline's v). There the other axis's centre ``q = (i + 0.5) *
+    f32(1/n)`` has one use, ``q - 0.5``, and XLA's CPU code contracts the
+    two into one FMA; a fusion that computes both outputs (the vignette,
+    the hash, the inside test) uses each q more than once and rounds the
+    product first, as the default does (the dumped fusions' LLVM IR and
+    object code)."""
     xg, yg = _pixel_grid(ow, oh, device)
-    q_u = (xg + 0.5) * float(_F(1.0 / ow))
-    q_v = (yg + 0.5) * float(_F(1.0 / oh))
-    cu, cv = _mattias_curve(q_u, q_v)
+    ru, rv = float(_F(1.0 / ow)), float(_F(1.0 / oh))
+    q_u = (xg + 0.5) * ru
+    q_v = (yg + 0.5) * rv
+    if cross:
+        cu = _mattias_curve(q_u, q_v, dv=fmaf32(yg + 0.5, rv, -0.5))[0]
+        cv = _mattias_curve(q_u, q_v, du=fmaf32(xg + 0.5, ru, -0.5))[1]
+    else:
+        cu, cv = _mattias_curve(q_u, q_v)
     return fma32(cu - q_u, curvature, q_u), fma32(cv - q_v, curvature, q_v)
+
+
+_INFEASIBLE = "infeasible"  # a geometry a kernel declines, kept as such
+_KEPT_MAX = 16  # entries kept per program; a seventeenth starts anew
+
+
+def _kept(ctx, key, build, keep: bool = True):
+    """``build()``, kept under ``key`` with the compiled program (its
+    ``kernel_cache``, which the engine drops when a parameter or the
+    viewport changes) where ``keep``, built anew otherwise. For what an
+    entry derives from the sizes and constant parameters alone."""
+    if not keep:
+        return build()
+    cache = ctx.program.kernel_cache
+    value = cache.get(key)
+    if value is None:
+        if len(cache) >= _KEPT_MAX:
+            cache.clear()
+        value = cache[key] = build()
+    return value
+
+
+def _mattias_geometry(w: int, h: int, ow: int, oh: int, curvature: float, dev):
+    """What the crt-mattias kernel derives from the sizes and CURVATURE:
+    the blur groups, the base warp (uv_u, uv_v) and the blur's own (bu,
+    bv, mattias_uv), and the per-pixel factors of the epilogue that no
+    frame changes: the vignette's pow, the comb mask's factor and the
+    inside test, [oh, ow, 1] each. ``_INFEASIBLE`` where the blur gate
+    declines the geometry."""
+    from retrocapture_tpu_torch.ops.cuda.blur_groups import blur_groups_fits
+
+    groups = mattias_groups(ow, oh)
+    if not blur_groups_fits((h, w, 3), (oh, ow), groups, max_dudv=_MATTIAS_MAX_DUDV, device=dev):
+        return _INFEASIBLE
+    uv_u, uv_v = mattias_uv(ow, oh, curvature, dev)
+    bu, bv = mattias_uv(ow, oh, curvature, dev, cross=True)
+    vig = _glsl_pow(16.0 * uv_u * uv_v * (1.0 - uv_u) * (1.0 - uv_v), 0.3)
+    xg, yg = _pixel_grid(ow, oh, dev)
+    o = fma32(torch.remainder(yg + 0.5, 2.0), float(_F(2.0) * _F(1.0 / ow)), xg + 0.5)
+    comb = torch.clamp((torch.remainder(o, 2.0) - 1.0) * 2.0, 0.0, 1.0)
+    inside = (uv_u >= 0.0) & (uv_u <= 1.0) & (uv_v >= 0.0) & (uv_v <= 1.0)
+    return groups, uv_u, uv_v, bu, bv, vig[..., None], fma32(comb, -0.15, 1.0)[..., None], inside[..., None]
 
 
 def _mattias_kernel(ctx, sh):
     """crt-mattias.glsl on the kernel library: the 9-group blur (CUDA
     kernel on the card) + torch epilogue. Returns None when infeasible."""
-    from retrocapture_tpu_torch.ops.cuda.blur_groups import blur5x5_groups, blur_groups_fits
+    from retrocapture_tpu_torch.ops.cuda.blur_groups import blur5x5_groups
     from retrocapture_tpu_torch.ops.preconv_blur import blur_preconv, blur_preconv_fits
 
     cfg = ctx.program.preset.passes[ctx.i]
     if cfg.filter_linear or cfg.wrap_mode != "clamp_to_edge":
         return None
     tex = ctx.input_binding.tex
-    h, w = tex.shape[0], tex.shape[1]
+    h, w = int(tex.shape[0]), int(tex.shape[1])
     ow, oh = ctx.out_size
     dev = tex.device
-    groups = mattias_groups(ow, oh)
-    if not blur_groups_fits((h, w, 3), (oh, ow), groups, max_dudv=_MATTIAS_MAX_DUDV, device=dev):
-        return None
-
     curvature = float(_F(ctx.params.get("CURVATURE", _F(0.5))))
-    scanspeed = float(_F(ctx.params.get("SCANSPEED", _F(1.0))))
-    fc = torch.as_tensor(ctx.frame_count, device=dev)
-    t = fc.to(torch.float32) * float(_F(1.0) / _F(60.0))
+    scanspeed = _F(ctx.params.get("SCANSPEED", _F(1.0)))
+    key = ("crt-mattias", ctx.i, w, h, ow, oh, curvature, str(dev))
+    geo = _kept(ctx, key, lambda: _mattias_geometry(w, h, ow, oh, curvature, dev))
+    if geo is _INFEASIBLE:
+        return None
+    groups, uv_u, uv_v, bu, bv, vig, comb, inside = geo
 
-    uv_u, uv_v = mattias_uv(ow, oh, curvature, dev)
+    fcf = torch.as_tensor(ctx.frame_count, device=dev).to(torch.float32)
+    # t = FrameCount / 60 enters three products with constants; XLA folds
+    # each chain into one constant times FrameCount.
+    t60 = _F(1.0) / _F(60.0)
 
     # phosphor values are sampled through pow(rgb, 2.2)
     p = _glsl_pow(torch.clamp_min(tex[..., :3], 0.0), 2.2)
@@ -196,41 +264,40 @@ def _mattias_kernel(ctx, sh):
     if use_preconv and dev.type == "cpu" and which != "preconv":
         use_preconv = False
     if use_preconv:
-        planes = blur_preconv(p, uv_u, uv_v, groups)
+        planes = blur_preconv(p, bu, bv, groups)
     else:
-        planes = blur5x5_groups(p, uv_u, uv_v, groups)
+        planes = blur5x5_groups(p, bu, bv, groups)
 
     posts = {0: 0.0, 1: 0.0, 2: 0.0}
     for ch, _, _, _, _, post in _MATTIAS_GROUPS:
         posts[ch] += post
     col = torch.stack([planes[ch] + float(_F(posts[ch])) for ch in range(3)], dim=-1)
 
-    xg, yg = _pixel_grid(ow, oh, dev)
-    # epilogue (crt-mattias.glsl main tail)
-    col = torch.clamp(col * 0.4 + 0.6 * col * col, 0.0, 1.0)
-    vig = 16.0 * uv_u * uv_v * (1.0 - uv_u) * (1.0 - uv_v)
-    col = col * _glsl_pow(vig, 0.3)[..., None]
+    # epilogue (crt-mattias.glsl main tail), each step in the form of the
+    # reference's jitted fusion: a product with one use contracted into
+    # the add or subtract that takes it, the constant factors of the
+    # scanline and flicker chains folded, ``x * 3.8 * scans`` taken as
+    # ``x * (scans * 3.8)``.
+    col = torch.clamp(fma32(col, 0.4, (col * 0.6) * col), 0.0, 1.0)
+    col = col * vig
     col = col * torch.tensor([0.95, 1.05, 0.95], dtype=torch.float32, device=dev)
-    col = (col + (col * col - col) * float(_F(0.3))) * float(_F(3.8))
+    col = fma32(fma32(col, col, -col), 0.3, col)
     # The scanline phase of every pixel and the flicker's one phase go
     # through sinf32 together: one chain of launches, not two.
-    scan_arg = 3.5 * (t * scanspeed) + uv_v * float(oh) * 1.5
-    sines = sinf32(torch.cat([scan_arg.reshape(-1), (300.0 * t).reshape(1)]))
-    scans = torch.clamp(0.35 + 0.15 * sines[:-1].reshape(oh, ow), 0.0, 1.0)
-    col = col * _glsl_pow(scans, 0.9)[..., None]
-    col = col * (1.0 + 0.0015 * sines[-1])
-    o = 2.0 * torch.remainder(yg + 0.5, 2.0) * float(_F(1.0 / ow))
-    fx = xg + 0.5
-    comb = torch.clamp((torch.remainder(fx + o, 2.0) - 1.0) * 2.0, 0.0, 1.0)
-    col = col * (1.0 - 0.15 * comb)[..., None]
+    scan_arg = fma32(bv, float(_F(_F(oh) * _F(1.5))), fcf * float(_F(_F(t60 * scanspeed) * _F(3.5))))
+    sines = sinf32(torch.cat([scan_arg.reshape(-1), (fcf * float(_F(300.0) * t60)).reshape(1)]))
+    scans = torch.clamp(fma32(sines[:-1].reshape(oh, ow), 0.15, 0.35), 0.0, 1.0)
+    col = col * (_glsl_pow(scans, 0.9) * 3.8)[..., None]
+    col = col * fma32(sines[-1], 0.0015, 1.0)
+    col = col * comb
     # rand(uv + 1e-4 t + {0, 0.3, 0.5}) per channel: the three hashes in
     # one pass over a stacked [oh, ow, 3] argument.
     offs = torch.tensor([0.0, 0.3, 0.5], dtype=torch.float32, device=dev)
-    noise = _rand((uv_u + 0.0001 * t)[..., None] + offs, (uv_v + 0.0001 * t)[..., None] + offs)
-    col = col * (1.0 - 0.25 * noise)
+    drift = fcf * float(_F(t60 * _F(0.0001)))
+    noise = _rand((uv_u + drift)[..., None] + offs, (uv_v + drift)[..., None] + offs)
+    col = col * fma32(noise, -0.25, 1.0)
     col = _glsl_pow(torch.clamp_min(col, 0.0), 0.45)
-    inside = (uv_u >= 0.0) & (uv_u <= 1.0) & (uv_v >= 0.0) & (uv_v <= 1.0)
-    col = torch.where(inside[..., None], col, 0.0)
+    col = torch.where(inside, col, 0.0)
     col = torch.where(torch.isnan(col), 0.0, col)
     return torch.cat([col, torch.ones((oh, ow, 1), dtype=torch.float32, device=dev)], dim=-1)
 
@@ -454,8 +521,6 @@ def _xbr_planes(tex, gathers, eq_thr, lv2_cf, small, y_weight, quantized: bool):
     return torch.cat([x255(0, 0), x255(0, 1), x255(1, 0), x255(0, -1), x255(-1, 0), code])
 
 
-_XBR_INFEASIBLE = "infeasible"  # a geometry the kernel declines, kept as such
-_XBR_GEOMETRIES_MAX = 8  # geometries kept per program; a ninth starts anew
 
 
 def _xbr_lv2_kernel(ctx, sh):
@@ -487,19 +552,10 @@ def _xbr_lv2_kernel(ctx, sh):
     ow, oh = ctx.out_size
     # The geometry's maps depend on the pass, the sizes and the parameters
     # only, unless the vertex stage reads frame state: they are kept with
-    # the compiled program (the engine drops them when a parameter or the
-    # viewport changes) and built per frame otherwise.
-    cp = ctx.program.passes[ctx.i]
-    cache = ctx.program.kernel_cache if cp.vertex_static else None
+    # the compiled program and built per frame otherwise.
     key = ("xbr-lv2", ctx.i, w, h, ow, oh, ctx.source_size, ctx.viewport, str(tex.device))
-    geo = None if cache is None else cache.get(key)
-    if geo is None:
-        geo = _xbr_geometry(ctx, ow, oh, w, h, tex.device)
-        if cache is not None:
-            if len(cache) >= _XBR_GEOMETRIES_MAX:
-                cache.clear()
-            cache[key] = geo
-    if geo is _XBR_INFEASIBLE:
+    geo = _kept(ctx, key, lambda: _xbr_geometry(ctx, ow, oh, w, h, tex.device), ctx.program.passes[ctx.i].vertex_static)
+    if geo is _INFEASIBLE:
         return None
     gathers, maps = geo
     S = _xbr_planes(tex, gathers, eq_thr, lv2_cf, small, y_weight, ctx.input_binding.quantized)
@@ -509,12 +565,12 @@ def _xbr_lv2_kernel(ctx, sh):
 def _xbr_geometry(ctx, ow: int, oh: int, w: int, h: int, dev):
     """What the xbr-lv2 kernel derives from a geometry: the front
     section's index tensors and the epilogue's maps, on ``dev``; or
-    ``_XBR_INFEASIBLE``."""
+    ``_INFEASIBLE``."""
     from retrocapture_tpu_torch.ops.cuda import xbr_epilogue as xe
 
     maps = _xbr_axis_maps(ctx, ow, oh, w, h)
     if maps is None:
-        return _XBR_INFEASIBLE
+        return _INFEASIBLE
     bx, fpx, tx, _, fpy, ty = maps
     # x-exactness gate: every x-tap's f32-floored index must equal
     # clamp(base + k) everywhere (true whenever ow/w is an integer ratio),
@@ -522,14 +578,415 @@ def _xbr_geometry(ctx, ow: int, oh: int, w: int, h: int, dev):
     # own exact row gather, so the y axis needs no such property.
     for k, arr in tx.items():
         if not np.array_equal(np.clip(arr, 0, w - 1), np.clip(bx + k, 0, w - 1)):
-            return _XBR_INFEASIBLE
+            return _INFEASIBLE
     return _xbr_gathers(ty, h, w, dev), xe.prepare_maps(np.clip(bx, 0, w - 1).astype(np.int32), fpx, fpy, w, dev)
+
+
+# ---------------------------------------------------------------------------
+# ntsc 2-phase (shaders_glsl/ntsc/shaders/ntsc-pass1-*-2phase.glsl,
+# ntsc-pass2-2phase{,-gamma,-linear}.glsl; bench config ntsc-320px).
+#
+# Pass 1 (encode): with frame_count_mod0 = 2 the shader sees FrameCount in
+# {0, 1}, and its chroma phase cos/sin(PI*(mod(y, 2) + fc) + x*CMF) depends
+# on the pixel only through (y & 1, x): four [W] rows, built once on the
+# host with the evaluator's step order and llvmpipe trig (_lp_trig) and
+# selected per frame by fc % 2 on the device. The absolute-scale
+# x-upsample is NEAREST at an integer ratio: repeat_interleave.
+#
+# Pass 2 (decode): the 65-tap x FIR and the decimate-by-2 are one [in_w,
+# out_w] band matrix per filter (luma, chroma), built once in numpy by
+# _ntsc_band_np_cols' clamped-accumulation rule (the reference's iota /
+# barrier / select-sum build exists only for XLA and Mosaic) and uploaded
+# once per geometry and device: one f32 matmul per channel, TF32 off.
+
+# begin params block constants (f32 stepwise, evaluator order)
+_NTSC_PI = np.float32(3.14159265)
+_NTSC_CMF2 = np.float32(np.float32(4.0) * _NTSC_PI) / np.float32(15.0)
+
+# rgb2yiq / mix_mat columns ([col][row] per GLSL column-major ctor).
+_NTSC_YIQ_COLS = (
+    (np.float32(0.2989), np.float32(0.5870), np.float32(0.1140)),
+    (np.float32(0.5959), np.float32(-0.2744), np.float32(-0.3216)),
+    (np.float32(0.2115), np.float32(-0.5229), np.float32(0.3114)),
+)
+_NTSC_MIX_COLS = {
+    False: ((1.0, 1.0, 1.0), (1.0, 2.0, 0.0), (1.0, 0.0, 2.0)),  # composite
+    True: ((1.0, 0.0, 0.0), (0.0, 2.0, 0.0), (0.0, 0.0, 2.0)),  # svideo
+}
+
+# Filter constants: the shader's own float[TAPS+1] tables
+# (ntsc-pass2-2phase-gamma.glsl:186-254).
+_NTSC2_LUMA = (
+    -0.000174844, -0.000205844, -0.000149453, -0.000051693,
+    0.000000000, -0.000066171, -0.000245058, -0.000432928,
+    -0.000472644, -0.000252236, 0.000198929, 0.000687058,
+    0.000944112, 0.000803467, 0.000363199, 0.000013422,
+    0.000253402, 0.001339461, 0.002932972, 0.003983485,
+    0.003026683, -0.001102056, -0.008373026, -0.016897700,
+    -0.022914480, -0.021642347, -0.008863273, 0.017271957,
+    0.054921920, 0.098342579, 0.139044281, 0.168055832,
+    0.178571429,
+)
+_NTSC2_CHROMA = (
+    0.001384762, 0.001678312, 0.002021715, 0.002420562,
+    0.002880460, 0.003406879, 0.004004985, 0.004679445,
+    0.005434218, 0.006272332, 0.007195654, 0.008204665,
+    0.009298238, 0.010473450, 0.011725413, 0.013047155,
+    0.014429548, 0.015861306, 0.017329037, 0.018817382,
+    0.020309220, 0.021785952, 0.023227857, 0.024614500,
+    0.025925203, 0.027139546, 0.028237893, 0.029201910,
+    0.030015081, 0.030663170, 0.031134640, 0.031420995,
+    0.031517031,
+)
+
+# yiq2rgb_mat columns ([col][row], GLSL column-major ctor).
+_NTSC_YIQ2RGB_COLS = (
+    (np.float32(1.0), np.float32(0.956), np.float32(0.6210)),
+    (np.float32(1.0), np.float32(-0.2720), np.float32(-0.6474)),
+    (np.float32(1.0), np.float32(-1.1060), np.float32(1.7046)),
+)
+
+def _ntsc_phase_rows(w_out: int):
+    """[2(fc), 2(y&1), w_out] cos/sin chroma-phase constants, bit-matched
+    to the evaluator: same f32 step order, same _lp_trig polynomials
+    (numpy path = exact-FMA llvmpipe match)."""
+    from retrocapture_tpu_torch.frontend.builtins import _lp_trig
+
+    x = np.arange(w_out, dtype=np.float32) + np.float32(0.5)  # pix_no.x
+    t = (x * _NTSC_CMF2).astype(np.float32)
+    cosr = np.empty((2, 2, w_out), np.float32)
+    sinr = np.empty((2, 2, w_out), np.float32)
+    for fcm in range(2):
+        for ypar in range(2):
+            s = np.float32(np.float32(ypar) + np.float32(0.5)) + np.float32(
+                np.float32(fcm)
+            )
+            cp = np.float32(_NTSC_PI * s)
+            mp = (cp + t).astype(np.float32)
+            cosr[fcm, ypar] = _lp_trig(np, mp, True)
+            sinr[fcm, ypar] = _lp_trig(np, mp, False)
+    return cosr, sinr
+
+
+def _ntsc_band_np_cols(weights, in_w: int, xs):
+    """Exact numpy band columns (clamped-tap accumulation) for the given
+    x positions — used for the edge strips where taps clamp."""
+    taps = len(weights) - 1
+    m = np.zeros((in_w, len(xs)), np.float32)
+    for ci, x in enumerate(xs):
+        for k in range(-taps, taps + 1):
+            j = min(max(2 * x + k, 0), in_w - 1)
+            m[j, ci] += np.float32(weights[taps - abs(k)])
+    return m
+
+
+def _ntsc_band_matrix(weights, in_w: int, out_w: int) -> np.ndarray:
+    """[in_w, out_w] f32 band matrix: column x accumulates weight w_|k| at
+    row clamp(2x + k, 0, in_w - 1), k in [-32, 32], in the reference's
+    order (its device build equals these columns, tests/test_kernels_ntsc.py)."""
+    return _ntsc_band_np_cols(weights, in_w, range(out_w))
+
+
+def _dot3(a0, a1, a2, cols):
+    """``[..., 3] x [3, 3]`` as jitted XLA's CPU dot computes ``v * mat``
+    for a [rows, 3] operand: output columns 0 and 1 as ``(a0*b0 + a1*b1) +
+    a2*b2`` rounded per step, column 2 as two FMAs in k order
+    (tests/test_torch_ntsc.py holds all three bit-equal). ``cols`` holds the
+    three output columns' weights."""
+    out = []
+    for c, (b0, b1, b2) in enumerate(cols):
+        b0, b1, b2 = float(_F(b0)), float(_F(b1)), float(_F(b2))
+        if c < 2:
+            out.append((a0 * b0 + a1 * b1) + a2 * b2)
+        else:
+            out.append(fmaf32(a2, b2, fmaf32(a1, b1, a0 * b0)))
+    return out
+
+
+def _ntsc_pass1_2phase_kernel(ctx, sh, *, svideo: bool):
+    cfg = ctx.program.preset.passes[ctx.i]
+    if cfg.filter_linear or cfg.wrap_mode != "clamp_to_edge" or cfg.mipmap_input:
+        return None
+    if cfg.frame_count_mod != 2:
+        return None  # field enumeration relies on fc in {0, 1}
+    ow, oh = ctx.out_size
+    h, w = sh.in_h, sh.in_w
+    if oh != h or ow % w != 0:
+        return None
+    r = ow // w
+    tex = ctx.input_binding.tex
+    if tex.shape[0] != h or tex.shape[1] != w:
+        return None
+    dev = tex.device
+
+    def build():
+        cosr, sinr = _ntsc_phase_rows(ow)
+        return torch.from_numpy(np.stack([cosr, sinr], axis=1)).to(dev)  # [2(fc), 2(cos, sin), 2(y&1), ow]
+
+    rows = _kept(ctx, ("ntsc-phase", ow, str(dev)), build)
+    fc = ctx.frame_count
+    if isinstance(fc, torch.Tensor):
+        # A device index: no host decision from the frame count.
+        sel = rows.index_select(0, torch.remainder(fc.reshape(1).to(dev), 2).to(torch.int64))[0]
+    else:
+        sel = rows[int(np.asarray(fc)) % 2]  # RCTPU_CONCRETE_FC=1: a host constant
+    reps = (h + 1) // 2  # row parity tiled; h may be odd
+    i_mod = sel[0].repeat(reps, 1)[:h]
+    q_mod = sel[1].repeat(reps, 1)[:h]
+
+    # The reference's CPU form (its v * mat einsums) plane by plane.
+    up = tex[..., :3].repeat_interleave(r, dim=1)  # [h, ow, 3] NEAREST
+    y, i, q = _dot3(up[..., 0], up[..., 1], up[..., 2], _NTSC_YIQ_COLS)
+    i, q = i * i_mod, q * q_mod  # modulate
+    cx, cy, cz = _dot3(y, i, q, _NTSC_MIX_COLS[svideo])
+    ones = torch.ones((h, ow), dtype=torch.float32, device=dev)
+    return torch.stack([cx, cy * i_mod, cz * q_mod, ones], dim=-1)  # demodulate
+
+
+def _ntsc_row_index(ow: int, oh: int, h: int) -> np.ndarray:
+    """The last pass's NEAREST row map to the viewport height: the
+    evaluator's plane setup for vTexCoord.y (corners 0/1/1), the f64
+    affine evaluation cast once to f32, then the NEAREST floor. A naive
+    (y + 0.5) / oh picks other rows at the 4.5-ratio boundaries."""
+    from retrocapture_tpu_torch.runtime.engine import _plane_setup_f32
+
+    a0, _dadx, dady = _plane_setup_f32(ow, oh, np.float32(0.0), np.float32(1.0), np.float32(1.0))
+    coord = (np.float64(dady) * np.arange(oh, dtype=np.float64) + np.float64(a0)).astype(np.float32)
+    return np.clip(np.floor(coord * h).astype(np.int64), 0, h - 1)
+
+
+def _ntsc_pass2_2phase_kernel(ctx, sh, *, gamma):
+    """gamma: None (plain), or the constant f32 exponent (2.5/2.0 for
+    -gamma, 2.4 for -linear)."""
+    cfg = ctx.program.preset.passes[ctx.i]
+    if cfg.filter_linear or cfg.wrap_mode != "clamp_to_edge" or cfg.mipmap_input:
+        return None
+    ow, oh = ctx.out_size
+    h, w = sh.in_h, sh.in_w
+    if w != 2 * ow:
+        return None
+    tex = ctx.input_binding.tex
+    if tex.shape[0] != h or tex.shape[1] != w:
+        return None
+    dev = tex.device
+    ml = _kept(ctx, ("ntsc-luma", w, ow, str(dev)), lambda: torch.from_numpy(_ntsc_band_matrix(_NTSC2_LUMA, w, ow)).to(dev))
+    mc = _kept(ctx, ("ntsc-chroma", w, ow, str(dev)), lambda: torch.from_numpy(_ntsc_band_matrix(_NTSC2_CHROMA, w, ow)).to(dev))
+    # One band product per channel; the FIR is y-invariant, so it and the
+    # gamma run at the h source rows.
+    y = tex[..., 0] @ ml
+    i = tex[..., 1] @ mc
+    q = tex[..., 2] @ mc
+    (r0, r1, r2), (g0, g1, g2), (b0, b1, b2) = (tuple(float(c) for c in col) for col in _NTSC_YIQ2RGB_COLS)
+    rgb = [y * r0 + i * r1 + q * r2, y * g0 + i * g1 + q * g2, y * b0 + i * b1 + q * b2]
+    if gamma is not None:
+        rgb = [_glsl_pow(c, gamma) for c in rgb]
+    if oh != h:
+        # The last pass lands at the viewport height (its explicit source
+        # 1.0 y scale upgrades to the viewport): NEAREST row expansion as
+        # a row gather, never a one-hot matmul, so that a row whose
+        # negative FIR went NaN under pow keeps its NaN to itself.
+        idx = _kept(ctx, ("ntsc-rows", ow, oh, h, str(dev)), lambda: torch.from_numpy(_ntsc_row_index(ow, oh, h)).to(dev))
+        rgb = [c.index_select(0, idx) for c in rgb]
+    return torch.stack(rgb + [torch.ones((oh, ow), dtype=torch.float32, device=dev)], dim=-1)
+
+
+def _ntsc_pass2_2phase(ctx, sh):
+    return _ntsc_pass2_2phase_kernel(ctx, sh, gamma=None)
+
+
+def _ntsc_pass2_2phase_gamma(ctx, sh):
+    return _ntsc_pass2_2phase_kernel(ctx, sh, gamma=np.float32(np.float32(2.5) / np.float32(2.0)))
+
+
+def _ntsc_pass2_2phase_linear(ctx, sh):
+    return _ntsc_pass2_2phase_kernel(ctx, sh, gamma=np.float32(2.4))
+
+
+def _ntsc_pass1_composite_2phase(ctx, sh):
+    """ntsc-pass1-composite-2phase.glsl (ntsc/ntsc-320px.glslp pass 0)."""
+    return _ntsc_pass1_2phase_kernel(ctx, sh, svideo=False)
+
+
+def _ntsc_pass1_svideo_2phase(ctx, sh):
+    """ntsc-pass1-svideo-2phase.glsl (ntsc/ntsc-320px-svideo.glslp)."""
+    return _ntsc_pass1_2phase_kernel(ctx, sh, svideo=True)
+
+
+# ---------------------------------------------------------------------------
+# nnedi3 (shaders_glsl/nnedi3/shaders/nnedi3-nns*-win8x4-pass{1,2}-*.glsl):
+# neural edge-directed doubling. The shader embeds its net as ~nns*66
+# inline intBitsToFloat literals and evaluates, per predicted pixel, an
+# 8x4-window [32]-vector through 2*nns neuron dot products. Here the
+# weights are parsed once from the shader text and the pass becomes: 32
+# shifted tap planes of the edge-padded input -> two [32, nns]
+# contractions (one matmul, accumulated in f64 and rounded once to f32)
+# -> the exp/softsign mix -> the interleave along the doubled axis. pass2
+# is pass1 transposed (x-doubling); -rgb runs 3 channels, -luma channel 0
+# only.
+#
+# Tap geometry (pass1, scale source 1x2, NEAREST, clamp_to_edge): output
+# row 2r is source row r; row 2r+1 is predicted from source rows r-1..r+2
+# and columns x-3..x+4. The half-texel floors are exact in f32, so taps
+# are integer shifts with edge clamp.
+
+_NNEDI3_W_RE = None
+
+
+def _nnedi3_weights(shader_path: str):
+    """Parse the per-neuron weight literals from the shader source.
+    Returns (W1 [32, nns], B1 [nns], W2 [32, nns], B2 [nns]) float32,
+    or None when the source does not match the expected structure.
+    Weight order: flat q = s*4 + c over samples[s] components — the
+    window position is (dy, dx) = (s//2 - 1, (s % 2)*4 + c - 3) for
+    pass1, transposed for pass2 (handled by the tap builder)."""
+    import re
+
+    global _NNEDI3_W_RE
+    if _NNEDI3_W_RE is None:
+        _NNEDI3_W_RE = (
+            re.compile(r"W\((\d),(-?\d+),(-?\d+),(-?\d+),(-?\d+)\)"),
+            re.compile(r"WS\((-?\d+),(-?\d+)\)"),
+            re.compile(r"sum1=(.*?);sum2=(.*?);WS\((-?\d+),(-?\d+)\);"),
+        )
+    w_re, _ws_re, line_re = _NNEDI3_W_RE
+    try:
+        src = Path(shader_path).read_text(encoding="utf-8", errors="replace")
+    except OSError:
+        return None
+    neurons = line_re.findall(src)
+    if not neurons:
+        return None
+    w1, w2, b1, b2 = [], [], [], []
+
+    def vec32(expr):
+        terms = w_re.findall(expr)
+        if len(terms) != 8:
+            return None
+        v = np.zeros(32, np.int32)
+        seen = set()
+        for s, a, b, c, d in terms:
+            s = int(s)
+            if s in seen:
+                return None
+            seen.add(s)
+            v[s * 4 : s * 4 + 4] = [int(a), int(b), int(c), int(d)]
+        return v
+
+    for e1, e2, bb1, bb2 in neurons:
+        v1, v2 = vec32(e1), vec32(e2)
+        if v1 is None or v2 is None:
+            return None
+        w1.append(v1)
+        w2.append(v2)
+        b1.append(int(bb1))
+        b2.append(int(bb2))
+    W1 = np.stack(w1, axis=1).view(np.float32)
+    W2 = np.stack(w2, axis=1).view(np.float32)
+    B1 = np.asarray(b1, np.int32).view(np.float32)
+    B2 = np.asarray(b2, np.int32).view(np.float32)
+    if not (np.isfinite(W1).all() and np.isfinite(W2).all()):
+        return None
+    return W1, W2, B1, B2
+
+
+_NNEDI3_WCACHE: dict = {}  # shader path -> the parsed weights (numpy) or None
+
+
+def _nnedi3_kernel(ctx, sh, *, axis: int, comps: int):
+    """axis 0 = pass1 (y-doubling), 1 = pass2 (x-doubling); comps 3 for
+    -rgb, 1 for -luma."""
+    cfg = ctx.program.preset.passes[ctx.i]
+    if cfg.filter_linear or cfg.wrap_mode != "clamp_to_edge" or cfg.mipmap_input:
+        return None
+    tex = ctx.input_binding.tex
+    h, w = int(tex.shape[0]), int(tex.shape[1])
+    ow, oh = ctx.out_size
+    if axis == 0 and (ow != w or oh != 2 * h):
+        return None
+    if axis == 1 and (ow != 2 * w or oh != h):
+        return None
+
+    key = str(cfg.shader_path)
+    if key not in _NNEDI3_WCACHE:
+        _NNEDI3_WCACHE[key] = _nnedi3_weights(key)
+    packs = _NNEDI3_WCACHE[key]
+    if packs is None:
+        return None
+    dev = tex.device
+
+    def upload():
+        w1, w2, b1, b2 = packs
+        # [2 nns, 32] in f64: both contractions in one product.
+        wt = torch.from_numpy(np.concatenate([w1, w2], axis=1).T.astype(np.float64)).to(dev)
+        return wt, torch.from_numpy(b1).to(dev)[:, None], torch.from_numpy(b2).to(dev)[:, None]
+
+    wt, b1, b2 = _kept(ctx, ("nnedi3", key, str(dev)), upload)
+    nns = b1.shape[0]
+
+    # 32 tap planes at source resolution: q = s*4 + cw; pass1 window (dy,
+    # dx) = (s//2 - 1, (s%2)*4 + cw - 3), pass2 the transpose; edge clamp.
+    pad = ((1, 2), (3, 4)) if axis == 0 else ((3, 4), (1, 2))
+    src = tex[..., :comps].to(torch.float32)
+    rows = torch.arange(-pad[0][0], h + pad[0][1], device=dev).clamp(0, h - 1)
+    cols = torch.arange(-pad[1][0], w + pad[1][1], device=dev).clamp(0, w - 1)
+    padded = src.index_select(0, rows).index_select(1, cols)
+    taps = []
+    for s in range(8):
+        for cw in range(4):
+            du, dv = s // 2 - 1, (s % 2) * 4 + cw - 3  # (minor, major)
+            dy, dx = (du, dv) if axis == 0 else (dv, du)
+            oy, ox = dy + pad[0][0], dx + pad[1][0]
+            taps.append(padded[oy : oy + h, ox : ox + w])
+    S = torch.stack(taps).reshape(32, -1)  # [32, h*w*comps]
+
+    # The sums and the contraction accumulate in f64 and round once to
+    # f32: a sum's order differs between the CPU and the card (and from
+    # XLA's), and exp and the RGBA8 store between the two passes amplify
+    # an ulp of it to two u8 steps; rounded once, both devices agree.
+    S64 = S.to(torch.float64)
+    ssum = S64.sum(dim=0).to(torch.float32)
+    sumsq = (S64 * S64).sum(dim=0).to(torch.float32)
+    mstd0 = ssum * float(_F(1.0 / 32.0))
+    mstd1 = sumsq * float(_F(1.0 / 32.0)) - mstd0 * mstd0
+    ok = mstd1 >= float(_F(1.192092896e-7))
+    mstd2 = torch.where(ok, 1.0 / torch.sqrt(mstd1), 0.0)
+    mstd1 = mstd1 * mstd2
+
+    d = (wt @ S64).to(torch.float32)  # [2 nns, h*w*comps]
+    e1 = expf32(d[:nns] * mstd2 + b1)
+    s2 = d[nns:] * mstd2 + b2
+    wsum = e1.to(torch.float64).sum(dim=0).to(torch.float32)
+    vsum = (e1 * (s2 / (1.0 + torch.abs(s2)))).to(torch.float64).sum(dim=0).to(torch.float32)
+    pred = torch.clamp(mstd0 + 5.0 * vsum / wsum * mstd1, 0.0, 1.0).reshape(h, w, comps)
+
+    # Interleave passthrough/predicted along the doubled axis (even
+    # positions are the source rows/cols).
+    out = torch.stack([src, pred], dim=1 if axis == 0 else 2).reshape(oh, ow, comps)
+    ones = torch.ones((oh, ow, 4 - comps), dtype=torch.float32, device=dev)
+    return torch.cat([out, ones], dim=-1)
+
+
+def _make_nnedi3(axis: int, comps: int):
+    def k(ctx, sh):
+        return _nnedi3_kernel(ctx, sh, axis=axis, comps=comps)
+
+    return k
 
 
 _REGISTRY = {
     "crt-mattias.glsl": _mattias_kernel,
     "xbr-lv2.glsl": _xbr_lv2_kernel,
+    "ntsc-pass1-composite-2phase.glsl": _ntsc_pass1_composite_2phase,
+    "ntsc-pass1-svideo-2phase.glsl": _ntsc_pass1_svideo_2phase,
+    "ntsc-pass2-2phase.glsl": _ntsc_pass2_2phase,
+    "ntsc-pass2-2phase-gamma.glsl": _ntsc_pass2_2phase_gamma,
+    "ntsc-pass2-2phase-linear.glsl": _ntsc_pass2_2phase_linear,
 }
+
+for _nns in (16, 32, 64):
+    for _pass, _ax in (("pass1", 0), ("pass2", 1)):
+        for _kind, _nc in (("luma", 1), ("rgb", 3)):
+            _REGISTRY[f"nnedi3-nns{_nns}-win8x4-{_pass}-{_kind}.glsl"] = _make_nnedi3(_ax, _nc)
 
 
 def find_kernel(shader_path: str):

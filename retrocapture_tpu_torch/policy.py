@@ -25,6 +25,12 @@ contracts and the bits matter.
 the C library's ``sinf`` for every lane, and glibc's ``sinf`` reduces
 and evaluates in float64 with fixed polynomials, which float64 tensor
 ops repeat bit for bit on the CPU and in CUDA.
+
+``logf32``, ``log2f32`` and ``expf32`` are ``jnp.log``, ``jnp.log2``
+and ``jnp.exp`` as those fusions execute them: XLA emits its f32 ``log``
+and ``exp`` inline (a range reduction and a polynomial in f32, the
+multiply-adds contracted); the same f32 operations, with ``fma32`` where
+the compiled code has an FMA, give its bits on the CPU and in CUDA.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["apply_policy", "to_device", "ifloor32", "fma32", "fmaf32", "sinf32", "INT32_MIN"]
+__all__ = ["apply_policy", "to_device", "ifloor32", "fma32", "fmaf32", "sinf32", "logf32", "log2f32", "expf32", "INT32_MIN"]
 
 INT32_MIN = -2147483648
 
@@ -189,3 +195,87 @@ def sinf32(x: torch.Tensor, *, below_120: bool = False) -> torch.Tensor:
     if not below_120:
         out = torch.where(torch.isinf(xd), float("nan"), out)
     return out.to(torch.float32)
+
+
+# XLA's inline f32 log and exp (the Cephes logf and expf forms), read from
+# the LLVM IR and the object code of jitted ``jnp.log2`` and ``jnp.exp`` on
+# the CPU. log: sqrt(1/2), the nine polynomial coefficients in the order
+# the three chains use them, the two parts of ln 2 (exp shares them).
+# exp: the input clamp, the five Horner coefficients. f32(1/ln 2) both.
+_F32 = np.float32
+_SQRTHF = float(_F32(0.7071067690849304))
+_LOG_C = tuple(
+    float(_F32(c))
+    for c in (
+        0.07037683576345444, -0.11514610052108765, 0.11676998436450958,
+        -0.12420140951871872, 0.14249323308467865, -0.16668057441711426,
+        0.2000071406364441, -0.24999994039535522, 0.3333333134651184,
+    )
+)
+_LN2_LO = float(_F32(-0.00021219444170128554))
+_LN2_HI = 0.693359375
+_LOG2E = float(_F32(1.4426950216293335))
+_FLT_MIN = float(np.finfo(np.float32).tiny)
+_EXP_LO, _EXP_HI = float(_F32(-87.80000305175781)), float(_F32(88.80000305175781))
+_EXP_C = tuple(
+    float(_F32(c))
+    for c in (0.00019875691214110702, 0.001398199936375022, 0.008333452045917511,
+              0.04166579619050026, 0.1666666567325592)
+)
+
+
+def logf32(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.log`` of an f32 tensor as a jitted XLA CPU fusion computes
+    it: the mantissa m in [sqrt(1/2), sqrt(2)) and exponent e, a degree-9
+    polynomial in x = m - 1 as three chains joined by powers x^3, and ``e *
+    ln 2`` added in two parts. Each multiply-add the compiled code fuses is
+    ``fma32`` (it rounds like a true FMA but for rare double roundings,
+    none among the values tests/test_torch_nnedi3.py and test_torch_mip.py
+    check); the rest are f32 tensor operations. log(0) = -inf (of a
+    subnormal too: the compiled code reads subnormals as zero), log(inf) =
+    inf, NaN and negative input give NaN."""
+    x = x.to(torch.float32)
+    xc = torch.where(x > _FLT_MIN, x, _FLT_MIN)  # subnormals, 0 and NaN: the smallest normal
+    bits = xc.view(torch.int32)
+    e = ((bits >> 23) - 127).to(torch.float32) + 1.0
+    m = ((bits & -2139095041) | 0x3F000000).view(torch.float32)  # exponent of 0.5: m in [0.5, 1)
+    small = m < _SQRTHF
+    xm = (m - 1.0) + torch.where(small, m, 0.0)
+    e = e - torch.where(small, 1.0, 0.0)
+    z = xm * xm
+    x3 = z * xm
+    a, b, c, d, f, g, h, i, j = _LOG_C
+    y0 = fma32(fma32(xm, a, b), xm, c)
+    y1 = fma32(fma32(xm, d, f), xm, g)
+    y2 = fma32(fma32(xm, h, i), xm, j)
+    p = fma32(fma32(fma32(y0, x3, y1), x3, y2), x3, e * _LN2_LO)
+    r = fma32(e, _LN2_HI, fma32(z, -0.5, xm) + p)
+    r = torch.where(x >= _FLT_MIN, r, float("nan"))
+    r = torch.where(x.abs() < _FLT_MIN, float("-inf"), r)
+    return torch.where(x == float("inf"), float("inf"), r)
+
+
+def log2f32(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.log2`` as a jitted XLA CPU fusion computes it: ``logf32``
+    times f32(1/ln 2)."""
+    return logf32(x) * _LOG2E
+
+
+def expf32(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.exp`` of an f32 tensor as a jitted XLA CPU fusion computes
+    it: x clamped to [-87.8, 88.8], n = floor(x / ln 2 + 1/2) clamped to
+    [-127, 127], r = x - n ln 2 in two parts, a degree-5 Horner polynomial
+    p, (r + p r^2 + 1) times 2^n built from n's bits (2^-127 reads as 0,
+    and a subnormal result flushes to 0, as there). Each multiply-add the
+    compiled code fuses is ``fma32``, as in ``logf32``. NaN stays NaN."""
+    x = x.to(torch.float32)
+    x = torch.where(x < _EXP_LO, _EXP_LO, x)
+    x = torch.where(x > _EXP_HI, _EXP_HI, x)
+    fx = torch.clamp(torch.floor(fma32(x, _LOG2E, 0.5)), -127.0, 127.0)
+    r = fma32(fx, -_LN2_LO, fma32(fx, -_LN2_HI, x))
+    c0, c1, c2, c3, c4 = _EXP_C
+    p = fma32(fma32(fma32(fma32(fma32(r, c0, c1), r, c2), r, c3), r, c4), r, 0.5)
+    y = fma32(p, r * r, r) + 1.0
+    n = torch.nan_to_num(fx).to(torch.int32)
+    out = y * ((n + 127) << 23).view(torch.float32)
+    return torch.where(out < _FLT_MIN, 0.0, out)  # a subnormal result flushes to zero, as there

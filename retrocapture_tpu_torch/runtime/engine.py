@@ -768,7 +768,8 @@ def _run_chain_impl(
 
 def _run_pass(cp, ctx: PassContext, sh: PassShapes):
     """One pass → [oh, ow, 4] color. A shader with a kernel-library entry
-    (graph/kernels.py: crt-mattias, xbr-lv2) takes that path when the entry finds
+    (graph/kernels.py: crt-mattias, xbr-lv2, the ntsc 2-phase passes,
+    nnedi3) takes that path when the entry finds
     the pass feasible; the evaluator is the general path and the
     semantic reference (the reference's engine.py:1196-1216; its
     phase-factored evaluation is not ported yet)."""

@@ -15,7 +15,10 @@ import torch
 
 import retrocapture_tpu_torch as torch_pkg
 from _mattias_standin import write_standin
+from _nnedi3_standin import write_chain as write_nnedi3_chain
+from _ntsc_standin import write_chain as write_ntsc_chain
 from _xbr_standin import write_standin as write_xbr_standin
+from retrocapture_tpu_torch.graph import kernels as tk
 from retrocapture_tpu_torch.graph.kernels import mattias_groups, mattias_uv
 from retrocapture_tpu_torch.ops.cuda import blur_groups as bg
 from retrocapture_tpu_torch.ops.cuda import resample as rs
@@ -353,6 +356,8 @@ BLIT_EDGES = [
     pytest.param(1, 240, 320, 1080, 1920, 3, id="b1-r6"),
     pytest.param(3, 48, 64, 144, 256, 3, id="b3-r4"),
     pytest.param(2, 270, 480, 270, 480, 3, id="near-identity"),
+    pytest.param(2, 1080, 640, 1080, 1920, 3, id="ntsc-x-only-r3"),
+    pytest.param(2, 480, 640, 1080, 1920, 3, id="nnedi3-r3-r2.25"),
 ]
 
 
@@ -641,3 +646,58 @@ def test_warped_mip_launches_once_per_level(cuda_device, tmp_path):
     assert ec.load_preset(warp)
     d = (out.cpu().to(torch.int32) - ec.apply(frames, output="u8").to(torch.int32)).abs()
     assert int(d.max()) <= 1 and float((d != 0).float().mean()) <= 1e-3
+
+
+# The library-call sections of the ntsc and nnedi3 entries: f32 matmuls
+# with TF32 off (policy). Against an f64 truth, f32 accumulation of these
+# sums stays within a few 1e-6 (65 band taps of at most 0.18 on [0, 1]
+# data; 32 terms of N(0, 0.25) weights); TF32's 10-bit mantissa would be
+# off by ~1e-4 to 1e-3, so the budget of 2e-5 tells the two apart.
+
+
+def test_ntsc_band_product_on_the_card_is_f32(cuda_device):
+    rng = np.random.default_rng(21)
+    h, w, ow = 240, 1280, 640
+    x = rng.random((h, w), np.float32)
+    for wts in (tk._NTSC2_LUMA, tk._NTSC2_CHROMA):
+        m = tk._ntsc_band_matrix(wts, w, ow)
+        got = (torch.from_numpy(x).to(cuda_device) @ torch.from_numpy(m).to(cuda_device)).cpu().numpy()
+        truth = x.astype(np.float64) @ m.astype(np.float64)
+        assert np.abs(got - truth).max() <= 2e-5
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+def test_nnedi3_contraction_on_the_card_is_f32(cuda_device):
+    rng = np.random.default_rng(22)
+    wt = (rng.standard_normal((128, 32)) * 0.25).astype(np.float32)
+    taps = rng.random((32, 480 * 320 * 3), np.float32)
+    got = (torch.from_numpy(wt).to(cuda_device) @ torch.from_numpy(taps).to(cuda_device)).cpu().numpy()
+    truth = wt.astype(np.float64) @ taps.astype(np.float64)
+    assert np.abs(got - truth).max() <= 2e-5
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+def _chain_cuda_vs_cpu(path, frames, viewport):
+    outs = []
+    for dev in ("cuda", "cpu"):
+        e = torch_pkg.Engine(viewport=viewport, device=dev)
+        assert e.load_preset(path), e.last_error
+        outs.append(e.apply(torch.from_numpy(frames).to(dev), output="u8").cpu())
+        assert e.shader_active is True and e.last_error is None
+    d = (outs[0].int() - outs[1].int()).abs()
+    assert int(d.max()) <= 1 and float((d != 0).float().mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("viewport", [(128, 48), (384, 144)])
+@pytest.mark.parametrize("pass1,pass2", [("composite", "gamma"), ("svideo", "plain"), ("composite", "linear")])
+def test_ntsc_chain_cuda_matches_cpu(cuda_device, tmp_path, pass1, pass2, viewport):
+    path = write_ntsc_chain(str(tmp_path), 256, pass1, pass2)
+    frames = np.random.default_rng(23).integers(0, 256, (3, 48, 64, 3), dtype=np.uint8)
+    _chain_cuda_vs_cpu(path, frames, viewport)
+
+
+@pytest.mark.parametrize("nns,kind", [(16, "luma"), (64, "rgb")])
+def test_nnedi3_chain_cuda_matches_cpu(cuda_device, tmp_path, nns, kind):
+    path = write_nnedi3_chain(str(tmp_path), nns, kind, height=48)
+    frames = np.random.default_rng(24).integers(0, 256, (2, 24, 32, 3), dtype=np.uint8)
+    _chain_cuda_vs_cpu(path, frames, (192, 108))

@@ -16,12 +16,12 @@ Tolerances.
 * LINEAR warped taps: bit-equal (the port's gather contracts the tap
   position and the lerps as the reference's jitted gather does), and so is
   ``sample2d_lod`` on a warped grid, its blend included.
-* Per-pixel LOD: ``log2(rho)`` is torch's in the port and XLA's polynomial
-  ``log`` times ``1/ln 2`` in the reference; they differ by an ulp in some
-  pixels, which moves a blend weight by an ulp and, where ``rho`` sits on a
-  power of two, the weight between two neighbouring levels by an ulp of the
-  LOD. Measured: 0.7% to 9.7% of values differ, none by more than 1.2e-7.
-  Budget: every value within 2.4e-7.
+* Per-pixel LOD: ``log2(rho)`` is XLA's inline polynomial ``log`` times
+  ``f32(1/ln 2)`` in the jitted reference, which ``policy.log2f32`` repeats
+  op by op (its multiply-adds as FMAs where the compiled code fuses them):
+  bit-equal to ``jax.jit(jnp.log2)`` over normal, subnormal and special
+  input, and ``sample2d_warped_mip`` bit-equal to the jitted reference
+  (torch's ``log2`` differed by an ulp in 0.7% to 9.7% of values).
 * Through the engines: u8 within 1 step in at most 0.1% of values, f32
   within 1e-6 (the gate of tests/test_torch_engine.py). The 0.25x glow
   pass renders 12x16 texels that the blit stretches tenfold, so one
@@ -42,6 +42,7 @@ import retrocapture_tpu_torch as torch_pkg
 from chip_smoke import write_mip_presets
 from retrocapture_tpu.ops import sampling as js
 from retrocapture_tpu_torch.ops import sampling as ts
+from retrocapture_tpu_torch.policy import log2f32
 from test_torch_engine import _close
 
 WRAPS = ["clamp_to_edge", "clamp_to_border", "repeat", "mirrored_repeat"]
@@ -133,6 +134,7 @@ def test_lod_on_a_concrete_separable_grid(lod):
 @pytest.mark.parametrize("wrap", WRAPS)
 @pytest.mark.parametrize("linear", [False, True], ids=["nearest", "linear"])
 def test_warped_mip_within_the_lod_budget(linear, wrap, hw):
+    """Bit-equal, the per-pixel LOD included (``policy.log2f32``)."""
     tex = _tex(5, *hw)
     u, v = _warp(60, 80, 3.0)
     # The warp's footprint crosses levels: rho from under 2 to over 8.
@@ -142,11 +144,24 @@ def test_warped_mip_within_the_lod_budget(linear, wrap, hw):
     want = np.asarray(jax.jit(lambda t, a, b: js.sample2d_warped_mip(t, a, b, **kw))(tex, u, v))
     got = ts.sample2d_warped_mip(_t(tex), _t(u), _t(v), **kw).numpy()
     assert got.shape == want.shape == (60, 80, 4)
-    if not linear:
-        np.testing.assert_array_equal(got, want)  # base level only
-        return
-    d = np.abs(got.astype(np.float64) - want)
-    assert d.max() <= 2.4e-7, d.max()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_log2f32_bit_equal_to_jitted_log2():
+    """Random magnitudes over the whole f32 range, every power of two and
+    its neighbours, subnormals, zeros, infinities, NaN and negatives."""
+    rng = np.random.default_rng(7)
+    p2 = (2.0 ** np.arange(-149, 128)).astype(f32)
+    x = np.concatenate([
+        rng.integers(0, 0x7F800000, 1 << 18).astype(np.int32).view(f32),
+        (rng.random(1 << 18, f32) * 20).astype(f32),
+        p2, np.nextafter(p2, f32(np.inf)), np.nextafter(p2, f32(0)),
+        np.array([0.0, -0.0, np.inf, -np.inf, np.nan, -1.0, -1e-40, 1e-12], f32),
+    ])
+    want = np.asarray(jax.jit(jax.numpy.log2)(x))
+    got = log2f32(_t(x)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (torch.log2(_t(x)).numpy() != want).mean() > 0.05  # torch's own log2 is another function
 
 
 def test_warped_mip_blends_levels():

@@ -72,7 +72,11 @@ COPIED_DEFS = [
     (
         "graph/kernels.py",
         "graph/kernels.py",
-        ["_MATTIAS_W", "_mattias_max_dudv", "_MATTIAS_GROUPS", "_XBR_RGBW", "_XBR_TAPS"],
+        [
+            "_MATTIAS_W", "_mattias_max_dudv", "_MATTIAS_GROUPS", "_XBR_RGBW", "_XBR_TAPS",
+            "_NTSC_PI", "_NTSC_CMF2", "_NTSC_YIQ_COLS", "_NTSC2_LUMA", "_NTSC2_CHROMA", "_NTSC_YIQ2RGB_COLS",
+            "_ntsc_band_np_cols", "_NNEDI3_W_RE", "_nnedi3_weights",
+        ],
     ),
     (
         "ops/pallas/xbr_epilogue.py",
