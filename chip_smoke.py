@@ -14,6 +14,9 @@ the program's front door (a ``FramePipeline`` fed through the frame queue's
 ``stream``, ``apply_streams``, ``apply_u8`` and the max-resolution clamp, two
 ``mipmap_input`` presets, and the command line in process), and the ntsc
 2-phase and nnedi3 entries of the kernel library through their stand-ins,
+then each slice path replayed by CUDA graph against the uncaptured walk
+(``RCTPU_REPLAY=0``; phase 23, bit for bit, parameters traced where a path
+says so) and the command line with ``--param-mode traced`` (phase 24),
 compares them with the port's own CPU run, counts the work that left
 shared memory for global (the blur kernel's wide tiles, the blit's and the
 xbr epilogue's general-path units: none may at the main paths'
@@ -708,7 +711,8 @@ def _mattias_engine(Engine, path, dev=None):
 
 
 def phase_mattias(gen, Engine, tmp):
-    """crt-mattias through Engine.apply: 3 applies at batch 32 (blur
+    """crt-mattias through Engine.apply, walked uncaptured (the caller sets
+    RCTPU_REPLAY=0: one launch a frame): 3 applies at batch 32 (blur
     kernel counted), CUDA against the port's CPU run on 2 frames; one
     apply under RCTPU_BLUR=v1 and one under RCTPU_MATTIAS=preconv, each
     counted on its own, its CUDA run against its CPU run and its warp
@@ -867,7 +871,8 @@ def phase_xbr_kernel(gen, Engine, path):
         for h, w, vp in [SRC_HW + (VIEWPORT,)] + XBR_GEOMETRIES:
             frame = torch.randint(0, 256, (1, h, w, 3), generator=gen, device=DEV, dtype=torch.uint8)
             e = _xbr_engine(Engine, path, vp, small)
-            with recorded(xe, "xbr_epilogue") as calls:
+            # The walk's own call (a graph's capture calls the wrapper too).
+            with recorded(xe, "xbr_epilogue") as calls, env(RCTPU_REPLAY="0"):
                 e.apply(frame, output="u8")
             _engine_ok(e, f"xbr {h}x{w} -> {vp}")
             what = f"S {tuple(calls[0][0].shape) if calls else None} -> {vp[1]}x{vp[0]} small_details={small:g}"
@@ -890,8 +895,9 @@ def phase_xbr_kernel(gen, Engine, path):
 
 
 def phase_xbr_slice(gen, Engine, path):
-    """xbr-lv2 through Engine.apply: 3 applies at batch 64 (epilogue
-    kernel counted: one launch per frame), CUDA against the port's CPU run
+    """xbr-lv2 through Engine.apply, walked uncaptured (the caller sets
+    RCTPU_REPLAY=0): 3 applies at batch 64 (epilogue kernel counted: one
+    launch per frame), CUDA against the port's CPU run
     on 2 frames, and one apply with small_details = 1."""
     import torch
 
@@ -913,7 +919,8 @@ def phase_xbr_slice(gen, Engine, path):
     general = xe.general_blocks(reset=True)
     check(launches == 3 * XBR_BATCH, f"xbr: epilogue kernel launches {launches}, want {3 * XBR_BATCH}")
     check(general == 0, f"xbr: {general} epilogue blocks took the general path")
-    check(len(e._program.kernel_cache) == 1, f"xbr: {len(e._program.kernel_cache)} geometries kept, want 1")
+    kept = [k for p in e._programs.values() for k in p.walk.tables if k[0] == "xbr-lv2"]
+    check(len(kept) == 1, f"xbr: {len(kept)} geometries kept, want 1")
     # Not the stand-in's passthrough: xbr blends the NEAREST upscale at edges.
     ys = (torch.arange(vh, device=DEV) * h) // vh
     xs = (torch.arange(vw, device=DEV) * w) // vw
@@ -1386,6 +1393,228 @@ def _product_ms(fn, iters=50):
     return (event_ms(fn, iters) + event_ms(fn, iters)) / 2
 
 
+# Phase 23: each slice path replayed by CUDA graph against the uncaptured
+# walk (RCTPU_REPLAY=0): (name, preset, input format, batch, traced
+# parameter and the values it takes before the second and third apply).
+REPLAY_APPLIES = 3  # counted applies of each mode, a parameter change between them
+REPLAY_F32_BATCH = 8  # the f32 apply of each mode
+
+
+def _replay_paths(tmp):
+    from _mattias_standin import write_standin as write_mattias
+    from _ntsc_standin import write_chain as write_ntsc
+    from _xbr_standin import write_standin as write_xbr
+
+    (tmp / "warp-curve.glslp").write_text(WARP_GLSLP)
+    (tmp / "warp-curve.glsl").write_text(WARP_GLSL)
+    return [
+        ("feedback-ghost-nv12", PRESET, "nv12", SLICE_BATCH, None),
+        ("feedback-ghost-nv12 traced", PRESET, "nv12", SLICE_BATCH, ("GHOST", (0.8, 0.2))),
+        ("xbr-lv2", write_xbr(str(tmp)), "rgb", XBR_BATCH, None),
+        ("ntsc-320px", write_ntsc(str(tmp), NTSC_WIDTH), "rgb", NTSC_BATCH, None),
+        ("crt-mattias traced", write_mattias(str(tmp)), "rgb", MATTIAS_BATCH, ("CURVATURE", (0.8, 0.3))),
+        ("warp-curve traced", tmp / "warp-curve.glslp", "rgb", WARP_BATCH, ("CURV", (0.5, 0.1))),
+    ]
+
+
+# The kernel wrappers' launch counters, by the kernel's name in the JSON
+# line, and the name of the kernel's __global__ function (csrc/*.cu) in
+# torch.profiler's CUDA activity.
+_COUNTERS = {
+    "resample_u8": ("resample", "LAUNCHES", "resample_u8_kernel"),
+    "resample_xphase": ("resample", "XPHASE_LAUNCHES", "resample_xphase_kernel"),
+    "warp_sample": ("warp_sample", "LAUNCHES", "warp_sample_kernel"),
+    "blur_groups_v2": ("blur_groups", "LAUNCHES", "blur_groups_kernel"),
+    "xbr_epilogue": ("xbr_epilogue", "LAUNCHES", "xbr_epilogue_kernel"),
+}
+
+
+def _counts(reset=False):
+    """The wrappers' launch calls since their last reset."""
+    import importlib
+
+    out = {}
+    for name, (mod, attr, _) in _COUNTERS.items():
+        m = importlib.import_module(f"retrocapture_tpu_torch.ops.cuda.{mod}")
+        out[name] = getattr(m, attr)
+        if reset:
+            setattr(m, attr, 0)
+    return out
+
+
+def kernel_runs(fn):
+    """How many times the device ran each of the port's kernels during one
+    call of fn (inside a CUDA graph or not): its executions in
+    torch.profiler's CUDA activity, by the kernel's function name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(_SPIN_CYCLES)  # stands last in place of any record the stop loses (device_ms)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return {k: sum(fname in n for n in names) for k, (_, _, fname) in _COUNTERS.items()}
+
+
+def phase_replay(gen, Engine, tmp, card):
+    """Each slice path at 1080p through an engine that replays its chain by
+    CUDA graph and one that walks it (RCTPU_REPLAY=0): bit-equal in u8 on
+    every counted apply (a traced parameter changed between them) and in
+    f32 on one more; the replaying engine walks nothing uncaptured; each
+    mode's frames/s over 3 windows, device busy and idle share, first-apply
+    seconds. In one more replayed apply of each path the device runs each
+    kernel as often as the walk launches it in an apply, and the wrappers
+    launch none but the blit (torch.profiler's count of the kernel's
+    executions). Writes the paths' results to chiprun_out/replay.json.
+    Returns the replaying runs' launch calls (the walked first frame, the
+    capture and the blits) and the kernels' executions inside the graphs,
+    summed over the paths."""
+    import torch
+
+    h, w = SRC_HW
+    vw, vh = VIEWPORT
+    launches = dict.fromkeys(_COUNTERS, 0)
+    in_graph = dict.fromkeys(_COUNTERS, 0)
+    record = {"card": card, "paths": []}
+    for name, path, fmt, batch, param in _replay_paths(tmp):
+        shape = (batch, h * 3 // 2, w) if fmt == "nv12" else (batch, h, w, 3)
+        frames = [torch.randint(0, 256, shape, generator=gen, device=DEV, dtype=torch.uint8)
+                  for _ in range(REPLAY_APPLIES)]
+        engines, outs, first_s, windows, counted = {}, {}, {}, {}, {}
+        for mode in ("1", "0"):
+            e = Engine(viewport=VIEWPORT, device=DEV)
+            check(e.load_preset(str(path)), f"23 {name}: load_preset: {e.last_error}")
+            e.set_input_format(fmt)
+            if param is not None:
+                e.set_param_mode("traced")
+            engines[mode] = e
+            with env(RCTPU_REPLAY=mode):
+                _counts(reset=True)
+                got, seconds = [], []
+                for k in range(REPLAY_APPLIES):
+                    if k and param is not None:
+                        check(e.set_parameter(param[0], param[1][k - 1]), f"23 {name}: set_parameter")
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    got.append(e.apply(frames[k], output="u8"))
+                    torch.cuda.synchronize()
+                    seconds.append(time.perf_counter() - t0)
+                # The first apply walks (and captures); the later ones are
+                # timing windows.
+                first_s[mode], windows[mode] = seconds[0], seconds[1:]
+                counted[mode] = _counts()
+                outs[mode] = got
+            _engine_ok(e, f"23 {name} RCTPU_REPLAY={mode}")
+        for k in range(REPLAY_APPLIES):
+            check(torch.equal(outs["1"][k], outs["0"][k]), f"23 {name}: apply {k} replayed differs from the walk")
+        f32 = {}
+        for mode, e in engines.items():
+            with env(RCTPU_REPLAY=mode):
+                f32[mode] = e.apply(frames[0][:REPLAY_F32_BATCH], output="f32")
+        check(torch.equal(f32["1"], f32["0"]), f"23 {name}: the f32 apply replayed differs from the walk")
+        del outs, f32
+        rp = engines["1"]
+        stats = rp.replay_stats()
+        check(stats["uncaptured_applies"] == 0, f"23 {name}: {stats['uncaptured_applies']} applies walked uncaptured")
+        check(stats["graphs_captured"] == 1, f"23 {name}: {stats['graphs_captured']} graphs captured, want 1")
+        # The walk launches each kernel the same number of times an apply;
+        # a replayed apply must run it as often on the device, with no
+        # launch call but the blit's.
+        per_apply = {}
+        for k, n in counted["0"].items():
+            check(n % REPLAY_APPLIES == 0, f"23 {name}: {k} launched {n} times in {REPLAY_APPLIES} walked applies")
+            per_apply[k] = n // REPLAY_APPLIES
+        _counts(reset=True)
+        runs = kernel_runs(lambda: rp.apply(frames[0], output="u8"))
+        calls = _counts()
+        check(runs == per_apply, f"23 {name}: a replayed apply ran {runs} on the device, the walk launches {per_apply}")
+        graph_runs = {k: runs[k] - calls[k] for k in runs}
+        check(calls["resample_u8"] == 1 and sum(calls.values()) == 1,
+              f"23 {name}: launch calls in a replayed apply {calls}, want the blit's alone")
+        for k in launches:
+            launches[k] += counted["1"][k]
+            in_graph[k] += graph_runs[k]
+        # Rates (the counted applies after the first, and more windows up to
+        # WINDOWS), device busy and idle share of each mode.
+        modes = {}
+        for mode, e in engines.items():
+            with env(RCTPU_REPLAY=mode):
+                seconds = windows[mode]
+                while len(seconds) < WINDOWS:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    e.apply(frames[0], output="u8")
+                    torch.cuda.synchronize()
+                    seconds.append(time.perf_counter() - t0)
+                busy = device_ms(lambda: e.apply(frames[0], output="u8"), 1)
+            wall = sorted(seconds)[len(seconds) // 2] * 1e3
+            fps = sorted(batch / t for t in seconds)
+            modes[mode] = {"frames_per_s": fps, "device_busy_ms": busy, "median_apply_ms": wall,
+                           "idle_pct": 100.0 * (1.0 - busy / wall), "first_apply_s": first_s[mode],
+                           "launch_calls": counted[mode]}
+            say("23", f"{name} batch {batch}, RCTPU_REPLAY={mode}: " + _rates("", batch, seconds, card).lstrip(": ")
+                + f"; device busy {busy:.1f} ms an apply, idle {modes[mode]['idle_pct']:.1f}% of the median "
+                f"{wall:.1f} ms; first apply {first_s[mode]:.2f} s")
+        stats = rp.replay_stats()
+        record["paths"].append({"name": name, "batch": batch, "replay": modes["1"], "walk": modes["0"],
+                                "replay_stats": stats, "kernel_runs_replayed_apply": runs,
+                                "graph_runs_replayed_apply": graph_runs})
+        say("23", f"{name}: replay == walk in u8 ({REPLAY_APPLIES} applies of {batch}"
+            + (f", {param[0]} set between them" if param else "") + f") and f32 ({REPLAY_F32_BATCH} frames); "
+            f"replay_stats {stats}; launch calls {counted['1']}; one replayed apply ran {runs} on the device, "
+            f"{graph_runs} of them inside the graph")
+        del engines, frames
+        torch.cuda.empty_cache()
+    # The blit runs once a batch after the replays. Its alternative, inside
+    # each frame's graph, launches it once a frame: the same kernel at batch
+    # 1, B times, against one launch at batch B (feedback-ghost's 1080p ->
+    # 1080p and a 240x320 -> 1080p pass).
+    from retrocapture_tpu_torch.ops.cuda import resample as rs
+
+    for bh, bw, b in ((vh, vw, SLICE_BATCH), (h, w, SLICE_BATCH)):
+        tex = knife_tex(gen, (b, bh, bw, 3), DEV)
+        one = tex[:1].contiguous()
+        rs.blit_u8(one, vw, vh)
+        batched = (event_ms(lambda: rs.blit_u8(tex, vw, vh), 5) + event_ms(lambda: rs.blit_u8(tex, vw, vh), 5)) / 2
+        # b launches at batch 1 in one graph, as a frame's graph would hold them.
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(b):
+                rs.blit_u8(one, vw, vh)
+        per_frame = (event_ms(graph.replay, 2) + event_ms(graph.replay, 2)) / 2
+        del graph
+        record.setdefault("blit", []).append({"shape": [b, bh, bw, 3], "once_a_batch_ms": batched,
+                                              "once_a_frame_in_graph_ms": per_frame})
+        say("23", f"blit [{b},{bh},{bw},3] -> {vh}x{vw} u8: once a batch {batched:.3f} ms; once a frame (as inside each "
+            f"frame's graph: {b} launches at batch 1 in one graph) {per_frame:.3f} ms  ({card})")
+        del tex, one
+    out = REPO / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "replay.json").write_text(json.dumps(record, indent=1))
+    say("23", f"wrote {out / 'replay.json'}")
+    return launches, in_graph
+
+
+def phase_cli_traced():
+    """python -m retrocapture_tpu_torch --param-mode traced, as a process of
+    its own on the card: returns 0 with its stats."""
+    cmd = [sys.executable, "-m", "retrocapture_tpu_torch", "--source", "test", "--preset",
+           "assets/presets/feedback-ghost.glslp", "--viewport", f"{VIEWPORT[0]}x{VIEWPORT[1]}", "--frames",
+           str(CLI_FRAMES), "--batch", "8", "--param-mode", "traced", "--param", "GHOST=0.8", "--stats"]
+    proc = subprocess.run(cmd, cwd=str(REPO), capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"24: {' '.join(cmd[1:])} returned {proc.returncode}: {proc.stderr[-2000:]}")
+    stats = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(stats.get("frames") == CLI_FRAMES, f"24: stats {stats}")
+    say("24", f"python -m retrocapture_tpu_torch --param-mode traced --param GHOST=0.8 ({CLI_FRAMES} frames, 1080p): "
+        f"returned 0, stats {stats}")
+
+
 def phase_ntsc(gen, Engine, tmp, card):
     """ntsc-320px through the stand-ins (tests/_ntsc_standin.py): the
     composite + gamma chain, pass 0 at 1280 wide, the last pass at 640 x
@@ -1593,7 +1822,11 @@ def main() -> int:
 
         # Phases 10-11: the crt-mattias path and the xphase path, each
         # counted from zero.
-        meng, mframes, mlaunches = phase_mattias(gen, Engine, Path(td))
+        # Phases 10, 12, 14 and 15 walk uncaptured, as in the slices that
+        # brought them up: they count one launch a frame (phase 23 replays
+        # both paths by graph and counts the graph's launches on the device).
+        with env(RCTPU_REPLAY="0"):
+            meng, mframes, mlaunches = phase_mattias(gen, Engine, Path(td))
         launches.update(mlaunches)
         launches["resample_xphase"] = phase_xphase_slice(gen, Engine, Path(td))
         say("10-11", f"main-path launches: {launches}")
@@ -1632,14 +1865,15 @@ def main() -> int:
                 f"frame a launch, as the engine calls it): device time kernel {k_ms:.4f} ms, plain {plain_ms:.3f} ms; "
                 f"[{MATTIAS_BATCH},{h},{w},3] in one launch: kernel {k32_ms:.3f} ms ({k32_ms / MATTIAS_BATCH:.4f} a "
                 f"frame), plain {plain32_ms:.3f} ms  ({card})")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(2):
-            meng.apply(mframes, output="u8")
-        torch.cuda.synchronize()
-        mdt = (time.perf_counter() - t0) / 2
-        mdev = device_ms(lambda: meng.apply(mframes, output="u8"), 1)
-        say("12", f"crt-mattias slice: {MATTIAS_BATCH / mdt:.1f} frames/s at batch {MATTIAS_BATCH} "
+        with env(RCTPU_REPLAY="0"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2):
+                meng.apply(mframes, output="u8")
+            torch.cuda.synchronize()
+            mdt = (time.perf_counter() - t0) / 2
+            mdev = device_ms(lambda: meng.apply(mframes, output="u8"), 1)
+        say("12", f"crt-mattias slice, walked: {MATTIAS_BATCH / mdt:.1f} frames/s at batch {MATTIAS_BATCH} "
             f"({mdt * 1e3:.1f} ms per apply; device busy {mdev:.1f} ms of it, idle "
             f"{100.0 * (1.0 - mdev / (mdt * 1e3)):.1f}%)  ({card})")
 
@@ -1650,7 +1884,8 @@ def main() -> int:
 
         xpath = write_xbr_standin(td)
         xb_err, (xS, xmaps) = phase_xbr_kernel(gen, Engine, xpath)
-        xeng, xframes, launches["xbr_epilogue"] = phase_xbr_slice(gen, Engine, xpath)
+        with env(RCTPU_REPLAY="0"):
+            xeng, xframes, launches["xbr_epilogue"] = phase_xbr_slice(gen, Engine, xpath)
         say("13-14", f"main-path launches: {launches}")
 
         # Phase 15: the xbr kernel against the plain tail, in turns, at the
@@ -1662,17 +1897,18 @@ def main() -> int:
         )
         say("15", f"xbr_epilogue S {tuple(xS.shape)} -> [1,{VIEWPORT[1]},{VIEWPORT[0]},4]: device time kernel "
             f"{xb_ms:.4f} ms, plain tail {xb_plain:.3f} ms  ({card})")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(2):
-            xeng.apply(xframes, output="u8")
-        torch.cuda.synchronize()
-        xdt = (time.perf_counter() - t0) / 2
-        xdev = device_ms(lambda: xeng.apply(xframes, output="u8"), 1)
-        say("15", f"xbr-lv2 slice: {XBR_BATCH / xdt:.1f} frames/s at batch {XBR_BATCH} "
-            f"({xdt * 1e3:.1f} ms per apply; device busy {xdev:.1f} ms of it, idle "
-            f"{100.0 * (1.0 - xdev / (xdt * 1e3)):.1f}%)  ({card})")
-        _host_profile("15", "xbr-lv2", xeng, xframes)
+        with env(RCTPU_REPLAY="0"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2):
+                xeng.apply(xframes, output="u8")
+            torch.cuda.synchronize()
+            xdt = (time.perf_counter() - t0) / 2
+            xdev = device_ms(lambda: xeng.apply(xframes, output="u8"), 1)
+            say("15", f"xbr-lv2 slice, walked: {XBR_BATCH / xdt:.1f} frames/s at batch {XBR_BATCH} "
+                f"({xdt * 1e3:.1f} ms per apply; device busy {xdev:.1f} ms of it, idle "
+                f"{100.0 * (1.0 - xdev / (xdt * 1e3)):.1f}%)  ({card})")
+            _host_profile("15", "xbr-lv2 walked", xeng, xframes)
         import torch.nn.functional as F
 
         # One PyTorch call computing the kernel's function on the same
@@ -1700,7 +1936,8 @@ def main() -> int:
         phase_stream(Engine, card)
         phase_streams(gen, Engine, card)
         u8_launches = phase_apply_u8(gen, Engine)
-        (mip_rs, mip_ws), mip_rs_err = phase_mip(gen, Engine, Path(td))
+        with env(RCTPU_REPLAY="0"):  # it records each launch's inputs: a walk's launches
+            (mip_rs, mip_ws), mip_rs_err = phase_mip(gen, Engine, Path(td))
         rs_err = max(rs_err, mip_rs_err)
         phase_cli(td)
         launches["resample_u8"] += u8_launches + mip_rs
@@ -1708,9 +1945,12 @@ def main() -> int:
         say("16-20", f"main-path launches: {launches}")
 
         # Phases 21-22: the ntsc 2-phase and nnedi3 entries of the kernel
-        # library, each path's blit launches counted from zero.
-        ntsc_rs, ntsc_kd, ntsc_band = phase_ntsc(gen, Engine, td, card)
-        nn_rs, nn_kd, nn_prod = phase_nnedi3(gen, Engine, td, card)
+        # library, each path's blit launches counted from zero. They count
+        # the entries' calls, one a frame in a walk: they walk uncaptured
+        # (phase 23 replays the ntsc path).
+        with env(RCTPU_REPLAY="0"):
+            ntsc_rs, ntsc_kd, ntsc_band = phase_ntsc(gen, Engine, td, card)
+            nn_rs, nn_kd, nn_prod = phase_nnedi3(gen, Engine, td, card)
         launches["resample_u8"] += ntsc_rs + nn_rs
         rs_err = max(rs_err, ntsc_kd, nn_kd)
         say("21-22", f"main-path launches: {launches}")
@@ -1736,6 +1976,18 @@ def main() -> int:
                 say("21-22", f"F.interpolate bilinear [{b},3,{bh},{bw}] -> {vh}x{vw} f32: {lib_ms:.3f} ms  ({card})")
             del btex
 
+        # Phases 23-24: the slice's paths replayed by CUDA graph against the
+        # uncaptured walk, every count from zero; the CLI in traced mode.
+        rp_launches, in_graph = phase_replay(gen, Engine, Path(td), card)
+        for k, n in rp_launches.items():
+            launches[k] += n
+        check(rp_launches["resample_u8"] > 0, f"23: the blit was not launched on the replayed paths ({rp_launches})")
+        for k in ("warp_sample", "blur_groups_v2", "xbr_epilogue"):
+            check(in_graph[k] > 0, f"23: {k} ran in no graph on the replayed paths ({in_graph})")
+        say("23", f"launch calls on the replayed paths: {rp_launches}; kernel runs inside the graphs of one "
+            f"replayed apply a path: {in_graph}")
+        phase_cli_traced()
+
     # Each kernel's bound at its timed shape: inputs read once, outputs
     # written once; f32 operations counted per output value or pixel.
     vw, vh = VIEWPORT
@@ -1760,6 +2012,10 @@ def main() -> int:
             "replaces": f"retrocapture_tpu/ops/pallas/{replaces}", "launches": launched, "max_abs_err": err,
             "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None if library is None else lib[library],
+            # The kernel's executions inside the CUDA graphs of one replayed
+            # apply of each phase-23 path (torch.profiler), which "launches"
+            # (the wrapper's launch calls) does not count.
+            "graph_runs": in_graph.get(name, 0), "in_graph": in_graph.get(name, 0) > 0,
         }
 
     # library_ms: F.interpolate (bilinear, align_corners=False) computes the

@@ -1508,12 +1508,12 @@ class ShaderEval:
             # separability by value (plane-exact varyings folded through
             # concrete texel math).
             from retrocapture_tpu_torch.ops.sampling import (
-                _separable_rows,
                 sample2d_separable,
+                separable_rows,
             )
 
             dnp = np.asarray(uv.data, np.float32)
-            rows = _separable_rows(dnp[..., 0], dnp[..., 1])
+            rows = separable_rows(dnp[..., 0], dnp[..., 1])
             if rows is not None and not sampler.mipmap:
                 out = sample2d_separable(
                     sampler.tex,

@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from retrocapture_tpu_torch.policy import to_device
+from retrocapture_tpu_torch.policy import upload
 
 _DTYPES = {
     np.dtype(np.float32): torch.float32,
@@ -61,7 +61,7 @@ def _t(args, device=None):
     out = []
     for a in args:
         if isinstance(a, (np.ndarray, np.generic)):
-            a = to_device(a, dev)
+            a = upload(a, dev)
         out.append(a)
     return out
 
@@ -78,13 +78,13 @@ def _tt(args, device=None):
     out = []
     for a in args:
         if isinstance(a, (np.ndarray, np.generic)):
-            a = to_device(a, dev)
+            a = upload(a, dev)
         elif isinstance(a, bool):
-            a = torch.tensor(a, device=dev)
+            a = upload(torch.tensor(a), dev)
         elif isinstance(a, int):
-            a = torch.tensor(a, dtype=torch.int32 if ref == torch.bool else ref, device=dev)
+            a = upload(torch.tensor(a, dtype=torch.int32 if ref == torch.bool else ref), dev)
         elif isinstance(a, float):
-            a = torch.tensor(a, dtype=ref if ref.is_floating_point else torch.float32, device=dev)
+            a = upload(torch.tensor(a, dtype=ref if ref.is_floating_point else torch.float32), dev)
         out.append(a)
     return out
 
@@ -95,7 +95,7 @@ def asarray(x, dtype=None, *, device=None):
     else:
         if device is None:
             raise TypeError("tnp.asarray of a non-tensor needs a device")
-        t = to_device(x, device)
+        t = upload(x, device)
     if dtype is not None:
         t = t.to(torch_dtype(dtype))
     return t

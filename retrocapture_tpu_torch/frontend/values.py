@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from retrocapture_tpu_torch.frontend import tnp
-from retrocapture_tpu_torch.policy import to_device
+from retrocapture_tpu_torch.policy import upload
 
 __all__ = [
     "GType",
@@ -196,13 +196,13 @@ def smart_device(x, device):
     if isinstance(x, torch.Tensor):
         return x
     if not isinstance(x, np.ndarray) or x.ndim < 2 or x.size <= (1 << 14):
-        return to_device(x, device)
+        return upload(x, device)
     st = x.strides
     if st[0] == 0 or np.all(x == x[:1]):
-        return to_device(np.ascontiguousarray(x[:1]), device).expand(x.shape)
+        return upload(np.ascontiguousarray(x[:1]), device).expand(x.shape)
     if st[1] == 0 or np.all(x == x[:, :1]):
-        return to_device(np.ascontiguousarray(x[:, :1]), device).expand(x.shape)
-    return to_device(x, device)
+        return upload(np.ascontiguousarray(x[:, :1]), device).expand(x.shape)
+    return upload(x, device)
 
 
 def devicify_mixed(datas):

@@ -37,7 +37,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from retrocapture_tpu_torch.policy import expf32, fma32, fmaf32, logf32, sinf32
+from retrocapture_tpu_torch.policy import expf32, fma32, fmaf32, logf32, sinf32, unrecorded, upload, walk_program
 
 __all__ = ["find_kernel"]
 
@@ -185,45 +185,58 @@ def mattias_uv(ow: int, oh: int, curvature: float, device, cross: bool = False):
 
 
 _INFEASIBLE = "infeasible"  # a geometry a kernel declines, kept as such
-_KEPT_MAX = 16  # entries kept per program; a seventeenth starts anew
 
 
-def _kept(ctx, key, build, keep: bool = True):
-    """``build()``, kept under ``key`` with the compiled program (its
-    ``kernel_cache``, which the engine drops when a parameter or the
-    viewport changes) where ``keep``, built anew otherwise. For what an
-    entry derives from the sizes and constant parameters alone."""
-    if not keep:
+def _kept(key, build, keep: bool = True):
+    """``build()``, kept under ``key`` in the tables of the engine's program
+    whose walk runs (``policy.walk_program``) where ``keep``, built anew
+    otherwise and in a walk with no program (concrete FrameCount). For
+    what an entry derives from the program's key and constant parameters
+    alone: the program (and a graph captured from its walk) reads it for
+    its whole life, and the engine drops the programs when a parameter or
+    the viewport changes. The uploads of ``build`` belong to the kept
+    value, not to the walk's recorded sequence."""
+    wp = walk_program()
+    if not keep or wp is None:
         return build()
-    cache = ctx.program.kernel_cache
-    value = cache.get(key)
-    if value is None:
-        if len(cache) >= _KEPT_MAX:
-            cache.clear()
-        value = cache[key] = build()
-    return value
+    if key not in wp.tables:
+        with unrecorded():
+            wp.tables[key] = build()
+    return wp.tables[key]
 
 
-def _mattias_geometry(w: int, h: int, ow: int, oh: int, curvature: float, dev):
-    """What the crt-mattias kernel derives from the sizes and CURVATURE:
-    the blur groups, the base warp (uv_u, uv_v) and the blur's own (bu,
-    bv, mattias_uv), and the per-pixel factors of the epilogue that no
-    frame changes: the vignette's pow, the comb mask's factor and the
-    inside test, [oh, ow, 1] each. ``_INFEASIBLE`` where the blur gate
-    declines the geometry."""
+def _mattias_geometry(w: int, h: int, ow: int, oh: int, dev):
+    """What the crt-mattias kernel derives from the sizes alone: the blur
+    groups and the comb mask's factor [oh, ow, 1]. ``_INFEASIBLE`` where
+    the blur gate declines the geometry."""
     from retrocapture_tpu_torch.ops.cuda.blur_groups import blur_groups_fits
 
     groups = mattias_groups(ow, oh)
     if not blur_groups_fits((h, w, 3), (oh, ow), groups, max_dudv=_MATTIAS_MAX_DUDV, device=dev):
         return _INFEASIBLE
-    uv_u, uv_v = mattias_uv(ow, oh, curvature, dev)
-    bu, bv = mattias_uv(ow, oh, curvature, dev, cross=True)
-    vig = _glsl_pow(16.0 * uv_u * uv_v * (1.0 - uv_u) * (1.0 - uv_v), 0.3)
     xg, yg = _pixel_grid(ow, oh, dev)
     o = fma32(torch.remainder(yg + 0.5, 2.0), float(_F(2.0) * _F(1.0 / ow)), xg + 0.5)
     comb = torch.clamp((torch.remainder(o, 2.0) - 1.0) * 2.0, 0.0, 1.0)
+    return groups, fma32(comb, -0.15, 1.0)[..., None]
+
+
+def _mattias_warp(ow: int, oh: int, curvature, dev):
+    """What the crt-mattias kernel derives from CURVATURE (a constant, or
+    the f32 0-d tensor of a traced parameter): the base warp (uv_u, uv_v)
+    and the blur's own (bu, bv, mattias_uv), the vignette's pow and the
+    inside test, [oh, ow, 1] each."""
+    uv_u, uv_v = mattias_uv(ow, oh, curvature, dev)
+    bu, bv = mattias_uv(ow, oh, curvature, dev, cross=True)
+    vig = _glsl_pow(16.0 * uv_u * uv_v * (1.0 - uv_u) * (1.0 - uv_v), 0.3)
     inside = (uv_u >= 0.0) & (uv_u <= 1.0) & (uv_v >= 0.0) & (uv_v <= 1.0)
-    return groups, uv_u, uv_v, bu, bv, vig[..., None], fma32(comb, -0.15, 1.0)[..., None], inside[..., None]
+    return uv_u, uv_v, bu, bv, vig[..., None], inside[..., None]
+
+
+def _param(ctx, name: str, default: float):
+    """A parameter of the pass: an f32 constant in const mode, the f32 0-d
+    device tensor of its buffer in traced mode."""
+    v = ctx.params.get(name, _F(default))
+    return v if isinstance(v, torch.Tensor) else _F(v)
 
 
 def _mattias_kernel(ctx, sh):
@@ -239,15 +252,22 @@ def _mattias_kernel(ctx, sh):
     h, w = int(tex.shape[0]), int(tex.shape[1])
     ow, oh = ctx.out_size
     dev = tex.device
-    curvature = float(_F(ctx.params.get("CURVATURE", _F(0.5))))
-    scanspeed = _F(ctx.params.get("SCANSPEED", _F(1.0)))
-    key = ("crt-mattias", ctx.i, w, h, ow, oh, curvature, str(dev))
-    geo = _kept(ctx, key, lambda: _mattias_geometry(w, h, ow, oh, curvature, dev))
+    # A traced parameter is an f32 0-d tensor on the device (the engine's
+    # parameter buffer): what derives from it is computed on every walk,
+    # never read back to the host or kept.
+    curvature = _param(ctx, "CURVATURE", 0.5)
+    scanspeed = _param(ctx, "SCANSPEED", 1.0)
+    geo = _kept(("crt-mattias", ctx.i, w, h, ow, oh, str(dev)), lambda: _mattias_geometry(w, h, ow, oh, dev))
     if geo is _INFEASIBLE:
         return None
-    groups, uv_u, uv_v, bu, bv, vig, comb, inside = geo
+    groups, comb = geo
+    if isinstance(curvature, torch.Tensor):
+        warp = _mattias_warp(ow, oh, curvature, dev)
+    else:
+        warp = _kept(("crt-mattias-warp", ow, oh, float(curvature), str(dev)), lambda: _mattias_warp(ow, oh, float(curvature), dev))
+    uv_u, uv_v, bu, bv, vig, inside = warp
 
-    fcf = torch.as_tensor(ctx.frame_count, device=dev).to(torch.float32)
+    fcf = upload(ctx.frame_count, dev).to(torch.float32)
     # t = FrameCount / 60 enters three products with constants; XLA folds
     # each chain into one constant times FrameCount.
     t60 = _F(1.0) / _F(60.0)
@@ -280,11 +300,15 @@ def _mattias_kernel(ctx, sh):
     # ``x * (scans * 3.8)``.
     col = torch.clamp(fma32(col, 0.4, (col * 0.6) * col), 0.0, 1.0)
     col = col * vig
-    col = col * torch.tensor([0.95, 1.05, 0.95], dtype=torch.float32, device=dev)
+    col = col * upload(np.array([0.95, 1.05, 0.95], np.float32), dev)
     col = fma32(fma32(col, col, -col), 0.3, col)
     # The scanline phase of every pixel and the flicker's one phase go
     # through sinf32 together: one chain of launches, not two.
-    scan_arg = fma32(bv, float(_F(_F(oh) * _F(1.5))), fcf * float(_F(_F(t60 * scanspeed) * _F(3.5))))
+    if isinstance(scanspeed, torch.Tensor):
+        scan_t = ((fcf * float(t60)) * scanspeed) * 3.5
+    else:
+        scan_t = fcf * float(_F(_F(t60 * scanspeed) * _F(3.5)))
+    scan_arg = fma32(bv, float(_F(_F(oh) * _F(1.5))), scan_t)
     sines = sinf32(torch.cat([scan_arg.reshape(-1), (fcf * float(_F(300.0) * t60)).reshape(1)]))
     scans = torch.clamp(fma32(sines[:-1].reshape(oh, ow), 0.15, 0.35), 0.0, 1.0)
     col = col * (_glsl_pow(scans, 0.9) * 3.8)[..., None]
@@ -292,7 +316,7 @@ def _mattias_kernel(ctx, sh):
     col = col * comb
     # rand(uv + 1e-4 t + {0, 0.3, 0.5}) per channel: the three hashes in
     # one pass over a stacked [oh, ow, 3] argument.
-    offs = torch.tensor([0.0, 0.3, 0.5], dtype=torch.float32, device=dev)
+    offs = upload(np.array([0.0, 0.3, 0.5], np.float32), dev)
     drift = fcf * float(_F(t60 * _F(0.0001)))
     noise = _rand((uv_u + drift)[..., None] + offs, (uv_v + drift)[..., None] + offs)
     col = col * fma32(noise, -0.25, 1.0)
@@ -415,8 +439,8 @@ def _xbr_gathers(ty, h: int, w: int, dev):
     """The front section's index tensors on ``dev``: the edge-padded
     column gather ``[W + 4]`` and the 5 clamped row gathers ``{-2..2:
     [OH]}`` of the row-index maps ``ty``."""
-    cols = torch.from_numpy(np.clip(np.arange(-2, w + 2), 0, w - 1)).to(dev)
-    rows = {k: torch.from_numpy(np.clip(ty[k], 0, h - 1)).to(dev) for k in (-2, -1, 0, 1, 2)}
+    cols = upload(torch.from_numpy(np.clip(np.arange(-2, w + 2), 0, w - 1)), dev)
+    rows = {k: upload(torch.from_numpy(np.clip(ty[k], 0, h - 1)), dev) for k in (-2, -1, 0, 1, 2)}
     return cols, rows
 
 
@@ -554,7 +578,7 @@ def _xbr_lv2_kernel(ctx, sh):
     # only, unless the vertex stage reads frame state: they are kept with
     # the compiled program and built per frame otherwise.
     key = ("xbr-lv2", ctx.i, w, h, ow, oh, ctx.source_size, ctx.viewport, str(tex.device))
-    geo = _kept(ctx, key, lambda: _xbr_geometry(ctx, ow, oh, w, h, tex.device), ctx.program.passes[ctx.i].vertex_static)
+    geo = _kept(key, lambda: _xbr_geometry(ctx, ow, oh, w, h, tex.device), ctx.program.passes[ctx.i].vertex_static)
     if geo is _INFEASIBLE:
         return None
     gathers, maps = geo
@@ -721,9 +745,9 @@ def _ntsc_pass1_2phase_kernel(ctx, sh, *, svideo: bool):
 
     def build():
         cosr, sinr = _ntsc_phase_rows(ow)
-        return torch.from_numpy(np.stack([cosr, sinr], axis=1)).to(dev)  # [2(fc), 2(cos, sin), 2(y&1), ow]
+        return upload(np.stack([cosr, sinr], axis=1), dev)  # [2(fc), 2(cos, sin), 2(y&1), ow]
 
-    rows = _kept(ctx, ("ntsc-phase", ow, str(dev)), build)
+    rows = _kept(("ntsc-phase", ow, str(dev)), build)
     fc = ctx.frame_count
     if isinstance(fc, torch.Tensor):
         # A device index: no host decision from the frame count.
@@ -769,8 +793,8 @@ def _ntsc_pass2_2phase_kernel(ctx, sh, *, gamma):
     if tex.shape[0] != h or tex.shape[1] != w:
         return None
     dev = tex.device
-    ml = _kept(ctx, ("ntsc-luma", w, ow, str(dev)), lambda: torch.from_numpy(_ntsc_band_matrix(_NTSC2_LUMA, w, ow)).to(dev))
-    mc = _kept(ctx, ("ntsc-chroma", w, ow, str(dev)), lambda: torch.from_numpy(_ntsc_band_matrix(_NTSC2_CHROMA, w, ow)).to(dev))
+    ml = _kept(("ntsc-luma", w, ow, str(dev)), lambda: upload(_ntsc_band_matrix(_NTSC2_LUMA, w, ow), dev))
+    mc = _kept(("ntsc-chroma", w, ow, str(dev)), lambda: upload(_ntsc_band_matrix(_NTSC2_CHROMA, w, ow), dev))
     # One band product per channel; the FIR is y-invariant, so it and the
     # gamma run at the h source rows.
     y = tex[..., 0] @ ml
@@ -785,7 +809,7 @@ def _ntsc_pass2_2phase_kernel(ctx, sh, *, gamma):
         # 1.0 y scale upgrades to the viewport): NEAREST row expansion as
         # a row gather, never a one-hot matmul, so that a row whose
         # negative FIR went NaN under pow keeps its NaN to itself.
-        idx = _kept(ctx, ("ntsc-rows", ow, oh, h, str(dev)), lambda: torch.from_numpy(_ntsc_row_index(ow, oh, h)).to(dev))
+        idx = _kept(("ntsc-rows", ow, oh, h, str(dev)), lambda: upload(torch.from_numpy(_ntsc_row_index(ow, oh, h)), dev))
         rgb = [c.index_select(0, idx) for c in rgb]
     return torch.stack(rgb + [torch.ones((oh, ow), dtype=torch.float32, device=dev)], dim=-1)
 
@@ -914,13 +938,13 @@ def _nnedi3_kernel(ctx, sh, *, axis: int, comps: int):
         return None
     dev = tex.device
 
-    def upload():
+    def build():
         w1, w2, b1, b2 = packs
         # [2 nns, 32] in f64: both contractions in one product.
-        wt = torch.from_numpy(np.concatenate([w1, w2], axis=1).T.astype(np.float64)).to(dev)
-        return wt, torch.from_numpy(b1).to(dev)[:, None], torch.from_numpy(b2).to(dev)[:, None]
+        wt = upload(torch.from_numpy(np.concatenate([w1, w2], axis=1).T.astype(np.float64)), dev)
+        return wt, upload(torch.from_numpy(b1), dev)[:, None], upload(torch.from_numpy(b2), dev)[:, None]
 
-    wt, b1, b2 = _kept(ctx, ("nnedi3", key, str(dev)), upload)
+    wt, b1, b2 = _kept(("nnedi3", key, str(dev)), build)
     nns = b1.shape[0]
 
     # 32 tap planes at source resolution: q = s*4 + cw; pass1 window (dy,

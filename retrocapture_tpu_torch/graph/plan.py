@@ -38,7 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, Optional
 
@@ -58,7 +58,7 @@ from retrocapture_tpu_torch.frontend.values import (
     V,
 )
 from retrocapture_tpu_torch.graph.scale import PassShapes
-from retrocapture_tpu_torch.policy import to_device
+from retrocapture_tpu_torch.policy import upload
 from retrocapture_tpu_torch.presets.glslp import Preset
 
 __all__ = ["PresetProgram", "CompiledPass", "PassContext", "compile_preset", "TexBinding"]
@@ -131,10 +131,6 @@ class PresetProgram:
     # name → (pragma meta, effective default after preset override)
     parameters: dict[str, PragmaParameter]
     defaults: dict[str, float]
-    # What the hand kernels keep per (kernel, pass, sizes, device) while
-    # parameters and viewport stand; the engine clears it when either
-    # changes, and it goes with the program on load_preset / unload.
-    kernel_cache: dict = field(default_factory=dict)
 
     def uses_history(self) -> bool:
         for cp in self.passes:
@@ -397,7 +393,7 @@ class PassContext:
         prog, i = self.program, self.i
         if name in prog.luts:
             lut = prog.luts[name]
-            data = to_device(lut.data, self.device)
+            data = upload(lut.data, self.device)
             return TexBinding(
                 data, lut.linear, lut.wrap_mode, lut.mipmap,
                 quantized=True,  # PNG bytes / 255 (see _load_lut)

@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from retrocapture_tpu_torch.policy import to_device
+from retrocapture_tpu_torch.policy import upload
 
 __all__ = [
     "quantize_rgba8",
@@ -151,12 +151,12 @@ def srgb_store_rgb(x):
     then the exact IEC decode shared with the GL oracle. NaN stores 0
     like a GL UNORM store."""
     x = torch.where(torch.isnan(x), 0.0, torch.clamp(x, 0.0, 1.0))
-    up = to_device(_SRGB_UP, x.device)
-    down = to_device(_SRGB_DOWN, x.device)
+    up = upload(_SRGB_UP, x.device)
+    down = upload(_SRGB_DOWN, x.device)
     code = torch.searchsorted(up, x.contiguous(), right=True) - torch.searchsorted(
         down, x.contiguous(), right=True
     )
-    return to_device(_SRGB_DEC, x.device)[code]
+    return upload(_SRGB_DEC, x.device)[code]
 
 
 def framebuffer_store(x, *, float_framebuffer: bool, srgb_framebuffer: bool):

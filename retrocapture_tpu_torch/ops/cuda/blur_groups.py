@@ -37,7 +37,7 @@ import os
 import numpy as np
 import torch
 
-from retrocapture_tpu_torch.policy import ifloor32
+from retrocapture_tpu_torch.policy import ifloor32, upload
 
 __all__ = [
     "blur5x5_groups",
@@ -280,8 +280,8 @@ def _group_params(groups, tables, device):
         np.concatenate([[g.bx, g.by], g.xo, g.yo, wt.reshape(-1)]).astype(np.float32)
         for g, wt in zip(groups, tables)
     ]
-    params = torch.from_numpy(np.stack(rows)).to(device)
-    chan = torch.tensor([[g.channel, chans.index(g.channel)] for g in groups], dtype=torch.int32, device=device)
+    params = upload(np.stack(rows), device)
+    chan = upload(np.array([[g.channel, chans.index(g.channel)] for g in groups], np.int32), device)
     return params, chan, chans
 
 

@@ -47,7 +47,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from retrocapture_tpu_torch.policy import fma32
+from retrocapture_tpu_torch.policy import fma32, upload
 
 __all__ = ["xbr_epilogue", "xbr_epilogue_plain", "prepare_maps", "EpilogueMaps", "general_blocks", "LAUNCHES"]
 
@@ -130,7 +130,7 @@ def xbr_epilogue_plain(S, bx, fpx, fpy):
     r = torch.floor(r * 0.5)
     edru = torch.remainder(r, 2.0)
     px = torch.floor(r * 0.5)
-    t = torch.from_numpy(_ramp_table()).to(S.device)[..., None, None]  # [4, 4, 4, 1, 1]
+    t = upload(_ramp_table(), S.device)[..., None, None]  # [4, 4, 4, 1, 1]
     ramps = torch.clamp(
         (t[:, :, 0] * fpy[:, None] + t[:, :, 1] * fpx[None, :] + t[:, :, 2]) * t[:, :, 3], 0.0, 1.0
     )  # [4 ramps, 4 corners, OH, OW]

@@ -30,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from retrocapture_tpu_torch.policy import ifloor32
+from retrocapture_tpu_torch.policy import ifloor32, upload
 
 __all__ = [
     "GroupPlan", "plan_group", "preconv_texture", "subcell_coords", "group_samples", "blur_preconv",
@@ -138,7 +138,7 @@ def preconv_texture(plane: torch.Tensor, gp: GroupPlan) -> torch.Tensor:
         c = (cols + ds).clamp(0, w - 1)
         shifts.append(plane[r[:, None], c[None, :]])
     stack = torch.stack(shifts, dim=-1)  # [hp, wp, K]
-    tab = torch.from_numpy(gp.table.reshape(gp.sy * gp.sx, -1)).to(dev)  # [SY*SX, K]
+    tab = upload(torch.from_numpy(gp.table.reshape(gp.sy * gp.sx, -1)), dev)  # [SY*SX, K]
     q = torch.einsum("hwk,ck->hwc", stack, tab)  # [hp, wp, SY*SX]
     q = q.reshape(hp, wp, gp.sy, gp.sx)
     return q.permute(0, 2, 1, 3).reshape(hp * gp.sy, wp * gp.sx)

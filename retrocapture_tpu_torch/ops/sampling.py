@@ -37,7 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from retrocapture_tpu_torch.policy import fma32, fmaf32, ifloor32, log2f32, to_device
+from retrocapture_tpu_torch.policy import fma32, fmaf32, ifloor32, log2f32, upload, walk_program
 
 __all__ = [
     "sample2d",
@@ -132,6 +132,19 @@ def _axis_matrix(coord: np.ndarray, n: int, filter_linear: bool, wrap: str) -> n
     return a
 
 
+def separable_rows(u: np.ndarray, v: np.ndarray):
+    """``_separable_rows``, kept in the tables of the program whose walk
+    runs under the call's place in the walk (``WalkProgram.site``): in such
+    a walk a concrete grid derives from the program's key alone."""
+    wp = walk_program()
+    if wp is None:
+        return _separable_rows(u, v)
+    key = ("separable_rows", wp.site("separable_rows"), u.shape, v.shape)
+    if key not in wp.tables:
+        wp.tables[key] = _separable_rows(u, v)
+    return wp.tables[key]
+
+
 def _separable_rows(u: np.ndarray, v: np.ndarray):
     """If u varies only along columns and v only along rows of a 2D grid,
     return (u_row, v_col); else None."""
@@ -194,11 +207,11 @@ def _axis_take(tex, idx: np.ndarray, axis: int, wrap: str):
     out-of-range index."""
     n = tex.shape[axis]
     wi, valid = _wrap_index_np(np.asarray(idx, np.int64), n, wrap)
-    out = tex.index_select(axis, torch.from_numpy(wi.astype(np.int64)).to(tex.device))
+    out = tex.index_select(axis, upload(torch.from_numpy(wi.astype(np.int64)), tex.device))
     if valid is not None and not valid.all():
         shape = [1] * tex.dim()
         shape[axis] = len(wi)
-        mk = torch.from_numpy(valid.reshape(shape)).to(tex.device)
+        mk = upload(torch.from_numpy(valid.reshape(shape)), tex.device)
         out = torch.where(mk, out, torch.zeros((), dtype=tex.dtype, device=tex.device))
     return out
 
@@ -260,12 +273,12 @@ def _slice_axis_take(src, taps, m, axis, filter_linear, wrap):
         (p0, w0), (p1, _) = taps
         t0 = _axis_take(src, _pattern_index(p0, m), axis, wrap)
         t1 = _axis_take(src, _pattern_index(p1, m), axis, wrap)
-        mk = torch.from_numpy(np.asarray(w0 == 1.0).reshape(shape)).to(src.device)
+        mk = upload(torch.from_numpy(np.asarray(w0 == 1.0).reshape(shape)), src.device)
         return torch.where(mk, t0, t1)
     taken = []
     for pat, wv in taps:
         t = _axis_take(src, _pattern_index(pat, m), axis, wrap)
-        taken.append((t, None if wv is None else to_device(np.asarray(wv, np.float32).reshape(shape), src.device)))
+        taken.append((t, None if wv is None else upload(np.asarray(wv, np.float32).reshape(shape), src.device)))
     if len(taken) == 1:
         t, wt = taken[0]
         return t if wt is None else t * wt
@@ -379,7 +392,7 @@ def _axis_matrix_traced(coord, n: int, filter_linear: bool, wrap: str):
 def _axis_matrix_device(coord_np, n: int, filter_linear: bool, wrap: str, device):
     """The axis matrix built on ``device`` from a small concrete
     coordinate vector (bit-identical to the numpy ``_axis_matrix``)."""
-    return _axis_matrix_traced(to_device(np.asarray(coord_np, np.float32), device), n, filter_linear, wrap)
+    return _axis_matrix_traced(upload(np.asarray(coord_np, np.float32), device), n, filter_linear, wrap)
 
 
 def sample2d_affine(
@@ -449,8 +462,8 @@ def sample2d_separable(
         )
         if out is not None:
             return out.to(tex.dtype)
-    ax = _axis_matrix_traced(to_device(u_row, tex.device), w, filter_linear, wrap_mode)
-    ay = _axis_matrix_traced(to_device(v_col, tex.device), h, filter_linear, wrap_mode)
+    ax = _axis_matrix_traced(upload(u_row, tex.device), w, filter_linear, wrap_mode)
+    ay = _axis_matrix_traced(upload(v_col, tex.device), h, filter_linear, wrap_mode)
     th = torch.einsum("hs,swc->hwc", ay, tex)
     return torch.einsum("ws,hsc->hwc", ax, th).to(tex.dtype)
 
@@ -580,8 +593,8 @@ def sample2d_warped_mip(
     sampled with the warped sampler (the warp kernel on the card, one
     launch per level) and blended by its per-pixel weight."""
     h, w, _ = tex.shape
-    u = to_device(u, tex.device).to(torch.float32)
-    v = to_device(v, tex.device).to(torch.float32)
+    u = upload(u, tex.device).to(torch.float32)
+    v = upload(v, tex.device).to(torch.float32)
 
     def ddiff(a, axis):
         d = torch.diff(a, dim=axis)
@@ -673,7 +686,7 @@ def sample2d_requant(tex, u, v, *, filter_linear: bool, wrap_mode: str = "clamp_
         wrap_mode = "clamp_to_edge"
     h, w, _ = tex.shape
     if isinstance(u, np.ndarray) and isinstance(v, np.ndarray):
-        sep = _separable_rows(np.asarray(u, np.float32), np.asarray(v, np.float32))
+        sep = separable_rows(np.asarray(u, np.float32), np.asarray(v, np.float32))
         if sep is not None:
             u_row, v_col = sep
             if not filter_linear:
@@ -688,8 +701,8 @@ def sample2d_requant(tex, u, v, *, filter_linear: bool, wrap_mode: str = "clamp_
             th = torch.einsum("hs,swc->hwc", ay, tex)
             return torch.einsum("ws,hsc->hwc", ax, th).to(tex.dtype), not filter_linear
 
-    u = to_device(u, tex.device).to(torch.float32)
-    v = to_device(v, tex.device).to(torch.float32)
+    u = upload(u, tex.device).to(torch.float32)
+    v = upload(v, tex.device).to(torch.float32)
     if u.dim() == 2 and u.shape == v.shape:
         # A warped grid: the warp kernel's wrapper (its plain gather on
         # the CPU).

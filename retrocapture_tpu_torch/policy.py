@@ -31,14 +31,28 @@ and ``jnp.exp`` as those fusions execute them: XLA emits its f32 ``log``
 and ``exp`` inline (a range reduction and a polynomial in f32, the
 multiply-adds contracted); the same f32 operations, with ``fma32`` where
 the compiled code has an FMA, give its bits on the CPU and in CUDA.
+
+``upload`` is how the evaluation of a frame brings a host value to the
+device. Inside ``walking(program)`` the uploads of the first walk of a
+program are recorded in walk order, and every later walk of the same
+program takes them back from it instead of copying again (the reference
+builds its chain once per key and replays it): a later walk checks each
+value against the recorded one, bit for bit, and raises on a difference.
+A walk being captured into a CUDA graph may not upload at all: a
+host->device copy there would read a host buffer long freed at replay, so
+``to_device`` and ``upload`` raise while the current stream captures.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+from typing import Optional
+
 import numpy as np
 import torch
 
-__all__ = ["apply_policy", "to_device", "ifloor32", "fma32", "fmaf32", "sinf32", "logf32", "log2f32", "expf32", "INT32_MIN"]
+__all__ = ["apply_policy", "to_device", "upload", "WalkProgram", "walking", "walk_program", "unrecorded", "ifloor32", "fma32", "fmaf32", "sinf32", "logf32", "log2f32", "expf32", "INT32_MIN"]
 
 INT32_MIN = -2147483648
 
@@ -62,14 +76,140 @@ def to_device(x, device) -> torch.Tensor:
     """numpy array / numpy or Python scalar / tensor -> tensor on
     ``device``, with JAX's x64-off canonicalisation (f64 -> f32,
     i64 -> i32). Python ``float`` becomes f32, ``int`` i32, ``bool``
-    bool. Tensors only move; their dtype is left alone."""
+    bool. Tensors only move; their dtype is left alone. Raises while the
+    current CUDA stream captures a graph, where a copy from the host is
+    not allowed."""
     if isinstance(x, torch.Tensor):
+        if x.device == torch.device(device):
+            return x
+        _no_capture(x, device)
         return x.to(device)
+    _no_capture(x, device)
     a = np.asarray(x)
     canon = _CANON.get(a.dtype)
     if canon is not None:
         a = a.astype(canon)
     return torch.tensor(a, device=device)
+
+
+def _no_capture(x, device) -> None:
+    dev = torch.device(device)
+    if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        shape = tuple(x.shape) if hasattr(x, "shape") else ()
+        raise RuntimeError(
+            f"host->device upload of a {type(x).__name__} {shape} while a CUDA graph is captured: "
+            "the walk meets a value its program did not record"
+        )
+
+
+class WalkProgram:
+    """What the walks of one program key share: the uploads of its first
+    walk in walk order (``upload``), and ``tables``, the host tables and
+    device constants the walk derives from the key alone (the hand kernels'
+    geometry, the rasterizer planes, the separable tap rows). A later walk
+    replays the uploads;
+    ``uploads_replayed`` counts the values it took back."""
+
+    def __init__(self):
+        self.tensors: list = []
+        self._hosts: list = []
+        self.recorded = False  # the first walk has ended
+        self.pos = 0
+        self.uploads_replayed = 0
+        self.tables: dict = {}
+        self._sites: dict = {}  # name -> calls so far in this walk
+
+    def site(self, name: str) -> int:
+        """The ordinal of this call of ``name`` in the walk (0 for the
+        first): the walk of a program runs in one order, so the ordinal
+        names the call site of the chain and its loop trip."""
+        n = self._sites.get(name, 0)
+        self._sites[name] = n + 1
+        return n
+
+    def _take(self, x, device):
+        host = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+        if not self.recorded:
+            t = to_device(x, device)
+            self.tensors.append(t)
+            self._hosts.append(np.array(host, copy=True))
+            return t
+        i = self.pos
+        if i >= len(self.tensors):
+            raise RuntimeError(f"program replay: upload {i} was not recorded (the first walk made {i})")
+        want = self._hosts[i]
+        t = self.tensors[i]
+        if (
+            host.shape != want.shape
+            or host.dtype != want.dtype
+            or t.device != torch.device(device)
+            or np.ascontiguousarray(host).tobytes() != np.ascontiguousarray(want).tobytes()
+        ):
+            raise RuntimeError(
+                f"program replay: upload {i} is {host.dtype}{host.shape}, recorded {want.dtype}{want.shape} "
+                "with other values (a host value of the walk changed without a key change)"
+            )
+        self.pos = i + 1
+        self.uploads_replayed += 1
+        return t
+
+
+# The program whose walk runs in this thread (or task), if any.
+_WALK: contextvars.ContextVar = contextvars.ContextVar("retrocapture_walk", default=None)
+
+
+def walk_program() -> Optional[WalkProgram]:
+    """The program whose walk runs now, or None."""
+    return _WALK.get()
+
+
+@contextlib.contextmanager
+def walking(program: Optional[WalkProgram]):
+    """Run one walk of ``program``: its first walk records the uploads,
+    every later one replays them from the start. None: a plain walk."""
+    token = _WALK.set(program)
+    if program is not None:
+        program.pos = 0
+        program._sites.clear()
+    try:
+        try:
+            yield program
+        except BaseException:
+            if program is not None and not program.recorded:
+                program.tensors.clear()  # a failed first walk records nothing
+                program._hosts.clear()
+            raise
+        if program is not None and not program.recorded:
+            program.recorded = True
+        elif program is not None and program.pos != len(program.tensors):
+            raise RuntimeError(
+                f"program replay: the walk took {program.pos} of {len(program.tensors)} recorded uploads"
+            )
+    finally:
+        _WALK.reset(token)
+
+
+@contextlib.contextmanager
+def unrecorded():
+    """Uploads that a cache of their own keeps (a hand kernel's geometry,
+    built once and looked up after): not part of the walk's sequence."""
+    token = _WALK.set(None)
+    try:
+        yield
+    finally:
+        _WALK.reset(token)
+
+
+def upload(x, device) -> torch.Tensor:
+    """``to_device`` for a value the evaluation of a frame needs: recorded
+    by the first walk of the active ``WalkProgram`` and taken back from it
+    by every later walk. A tensor already on ``device`` passes through."""
+    if isinstance(x, torch.Tensor) and x.device == torch.device(device):
+        return x
+    wp = _WALK.get()
+    if wp is None:
+        return to_device(x, device)
+    return wp._take(x, device)
 
 
 def ifloor32(x: torch.Tensor) -> torch.Tensor:
@@ -144,7 +284,7 @@ def _reduce_large(x: torch.Tensor):
     from the float's own bits. uint64 arithmetic wraps; int64 wraps the
     same way, and the two logical right shifts are masked."""
     xi = x.abs().view(torch.int32).to(torch.int64)
-    table = torch.tensor(_INV_PIO4, dtype=torch.int64, device=x.device)
+    table = upload(torch.tensor(_INV_PIO4, dtype=torch.int64), x.device)
     idx = (xi >> 26) & 15
     m = (((xi & 0xFFFFFF) | 0x800000) << ((xi >> 23) & 7)) & _M32
     res0 = (m * table[idx]) & _M32

@@ -72,10 +72,18 @@ def test_cli_list_parameters_and_sources(tmp_path, capsys):
     assert capsys.readouterr().out.split() == ["a/x.glslp"]
 
 
-def test_cli_param_mode_traced_raises_before_any_frame(capsys):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 2"):
-        tcli.main(COMMON + ["--cpu", "--param-mode", "traced"])
-    assert "frames" not in capsys.readouterr().out
+def test_cli_param_mode_traced_matches_reference_cli(tmp_path, capsys):
+    """--param-mode traced with a --param override runs in both CLIs and
+    gives the same frames (feedback-ghost is bit-equal in traced mode)."""
+    extra = ["--cpu", "--param-mode", "traced", "--param", "GHOST=0.8"]
+    assert jcli.main(COMMON + extra + ["--output", str(tmp_path / "jax")]) == 0
+    js = _stats(capsys)
+    assert tcli.main(COMMON + extra + ["--output", str(tmp_path / "torch")]) == 0
+    ts = _stats(capsys)
+    a, b = np.load(tmp_path / "jax.npy"), np.load(tmp_path / "torch.npy")
+    assert b.shape == (6, 120, 160, 3)
+    np.testing.assert_array_equal(b, a)
+    assert ts["frames"] == js["frames"] == 6
     assert tcli.build_parser().prog == "retrocapture_tpu_torch"
 
 

@@ -513,6 +513,11 @@ def test_xbr_epilogue_kernel_general_path(cuda_device):
     assert torch.equal(got, xe.xbr_epilogue_plain(S, maps.bx, maps.fpx, maps.fpy))
 
 
+def _kept_xbr(e):
+    """What the xbr entry keeps, over the engine's programs: {key: value}."""
+    return {k: v for p in e._programs.values() for k, v in p.walk.tables.items() if k[0] == "xbr-lv2"}
+
+
 def test_xbr_slice_keeps_its_maps_on_the_card(cuda_device, tmp_path):
     path = write_xbr_standin(str(tmp_path))
     frames = torch.from_numpy(np.random.default_rng(5).integers(0, 256, (4, 60, 80, 3), dtype=np.uint8))
@@ -520,15 +525,15 @@ def test_xbr_slice_keeps_its_maps_on_the_card(cuda_device, tmp_path):
     assert e.load_preset(path), e.last_error
     xe.general_blocks(reset=True)
     first = e.apply(frames.to(cuda_device), output="u8")
-    (geo,) = e._program.kernel_cache.values()
+    (geo,) = _kept_xbr(e).values()
     again = e.apply(frames.to(cuda_device), output="u8")
-    assert list(e._program.kernel_cache.values())[0] is geo and xe.general_blocks() == 0
+    assert list(_kept_xbr(e).values())[0] is geo and xe.general_blocks() == 0
     cpu = torch_pkg.Engine(viewport=(480, 270), device="cpu")
     assert cpu.load_preset(path)
     want = cpu.apply(frames, output="u8")
     assert torch.equal(first.cpu(), want) and torch.equal(again.cpu(), want)
     e.set_viewport(320, 240)
-    assert e._program.kernel_cache == {}
+    assert _kept_xbr(e) == {}
     cpu.set_viewport(320, 240)
     assert torch.equal(e.apply(frames.to(cuda_device), output="u8").cpu(), cpu.apply(frames, output="u8"))
 
@@ -701,3 +706,139 @@ def test_nnedi3_chain_cuda_matches_cpu(cuda_device, tmp_path, nns, kind):
     path = write_nnedi3_chain(str(tmp_path), nns, kind, height=48)
     frames = np.random.default_rng(24).integers(0, 256, (2, 24, 32, 3), dtype=np.uint8)
     _chain_cuda_vs_cpu(path, frames, (192, 108))
+
+
+# -- replay by CUDA graph (runtime/replay.py) -----------------------------------
+
+REPLAY_SRC_HW = (48, 64)
+
+
+def _replay_presets(tmp_path):
+    """(name, preset, input format, viewport, traced parameter change or
+    None) of the slice's paths at a small size."""
+    import os
+
+    from _ntsc_standin import write_chain
+
+    fg = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets", "presets",
+                      "feedback-ghost.glslp")
+    d = str(tmp_path)
+    return [
+        ("feedback-ghost-nv12", fg, "nv12", (160, 120), None),
+        ("feedback-ghost-nv12 traced", fg, "nv12", (160, 120), ("GHOST", 0.8)),
+        ("xbr-lv2", write_xbr_standin(d), "rgb", (192, 144), None),
+        ("ntsc-320px", write_chain(d, 4 * REPLAY_SRC_HW[1]), "rgb", (256, 144), None),
+        ("crt-mattias traced", write_standin(d), "rgb", (256, 144), ("CURVATURE", 0.8)),
+    ]
+
+
+def _replay_frames(fmt, b, seed):
+    h, w = REPLAY_SRC_HW
+    shape = (b, h * 3 // 2, w) if fmt == "nv12" else (b, h, w, 3)
+    return torch.from_numpy(np.random.default_rng(seed).integers(0, 256, shape, dtype=np.uint8)).cuda()
+
+
+@pytest.mark.parametrize("output", ["u8", "f32"])
+def test_replay_equals_the_uncaptured_walk(cuda_device, tmp_path, monkeypatch, output):
+    """Each slice path replayed by graph against RCTPU_REPLAY=0 on the card,
+    bit for bit, across set_parameter (traced), set_viewport, reset_state
+    and load_state; no apply of the replaying engine walks uncaptured."""
+    for name, path, fmt, viewport, param in _replay_presets(tmp_path):
+        engines = {}
+        for mode in ("1", "0"):
+            e = torch_pkg.Engine(viewport=viewport)
+            assert e.load_preset(path), e.last_error
+            e.set_input_format(fmt)
+            if param is not None:
+                e.set_param_mode("traced")
+            engines[mode] = e
+
+        def both(step, seed):
+            f = _replay_frames(fmt, 3, seed)
+            outs = {}
+            for mode, e in engines.items():
+                monkeypatch.setenv("RCTPU_REPLAY", mode)
+                outs[mode] = e.apply(f, output=output)
+            torch.cuda.synchronize()
+            assert torch.equal(outs["1"], outs["0"]), f"{name} {output}: {step}"
+
+        both("first apply", 1)
+        both("replay", 2)
+        if param is not None:
+            for e in engines.values():
+                assert e.set_parameter(*param)
+            both("set_parameter", 3)
+        for mode, e in engines.items():
+            e.save_state(str(tmp_path / f"{mode}.npz"))
+        both("after save", 4)
+        for e in engines.values():
+            e.reset_state()
+        both("reset_state", 5)
+        for mode, e in engines.items():
+            e.load_state(str(tmp_path / f"{mode}.npz"))
+        both("load_state", 6)
+        for e in engines.values():
+            e.set_viewport(viewport[0] // 2 * 2 + 32, viewport[1])
+        both("set_viewport", 7)
+        stats = engines["1"].replay_stats()
+        assert stats["uncaptured_applies"] == 0 and stats["graphs_captured"] >= 2 and stats["replays"] > 0, (name, stats)
+        assert engines["1"]._effective_param_mode() == ("traced" if param else "const"), name
+
+
+def test_capture_meets_an_unrecorded_upload_and_raises(cuda_device, tmp_path, monkeypatch):
+    """A walk that asks for a host value its program did not record, inside
+    the capture, raises ReplayError naming the upload; RCTPU_REPLAY=0 then
+    runs the same chain."""
+    from retrocapture_tpu_torch import policy
+    from retrocapture_tpu_torch.runtime import engine as engine_module
+    from retrocapture_tpu_torch.runtime.replay import ReplayError
+
+    name, path, fmt, viewport, _ = _replay_presets(tmp_path)[0]
+    e = torch_pkg.Engine(viewport=viewport)
+    assert e.load_preset(path)
+    e.set_input_format(fmt)
+    real = engine_module._run_chain_impl
+    walks = []
+
+    def extra_upload(*a, **k):
+        walks.append(1)
+        if len(walks) > 1:  # the capture's walk meets a value the first walk did not upload
+            policy.upload(np.zeros(4, np.float32), cuda_device)
+        return real(*a, **k)
+
+    monkeypatch.setattr(engine_module, "_run_chain_impl", extra_upload)
+    with pytest.raises(ReplayError, match="program replay: upload 0"):
+        e.apply(_replay_frames(fmt, 2, 9))
+    monkeypatch.setattr(engine_module, "_run_chain_impl", real)
+    monkeypatch.setenv("RCTPU_REPLAY", "0")
+    e2 = torch_pkg.Engine(viewport=viewport)
+    assert e2.load_preset(path)
+    e2.set_input_format(fmt)
+    assert e2.apply(_replay_frames(fmt, 2, 9)).shape == (2, viewport[1], viewport[0], 3)
+
+
+def test_replay_counts_the_graphs_launches(cuda_device, tmp_path):
+    """The wrappers count their launch calls, a walked frame's and a
+    capture's, and a graph's replay adds none; the device runs the epilogue
+    kernel once a frame, captured or not (its executions in torch.profiler's
+    CUDA activity)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    name, path, fmt, viewport, _ = _replay_presets(tmp_path)[2]
+    e = torch_pkg.Engine(viewport=viewport)
+    assert e.load_preset(path)
+    before = xe.LAUNCHES
+    e.apply(_replay_frames(fmt, 4, 3))
+    torch.cuda.synchronize()
+    assert xe.LAUNCHES - before == 2  # frame 0 walked, then captured
+    before = xe.LAUNCHES
+    frames = _replay_frames(fmt, 4, 4)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        e.apply(frames)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1_000_000)  # a last record stands in for any the stop loses
+        torch.cuda.synchronize()
+    ran = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA and "xbr_epilogue_kernel" in ev.name]
+    assert xe.LAUNCHES == before and len(ran) == 4
+    assert e.replay_stats()["replays"] == 7

@@ -558,10 +558,26 @@ def test_frame_count_is_a_tensor_by_default(monkeypatch):
     assert len(seen) == 2 and all(isinstance(fc, torch.Tensor) for fc in seen)
 
 
-def test_param_mode_traced_is_refused():
+def test_param_mode_traced_runs_through_engine():
+    """set_param_mode("traced") is accepted (a bogus mode is not); the
+    parameters reach the walk as the engine's f32 0-d buffers, and a
+    set_parameter writes its buffer and keeps the programs."""
     te = torch_pkg.Engine(viewport=VIEWPORT, device="cpu")
-    te.set_param_mode("const")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 2"):
-        te.set_param_mode("traced")
     with pytest.raises(ValueError):
         te.set_param_mode("bogus")
+    assert te.load_preset(FEEDBACK)
+    te.set_input_format("nv12")
+    te.set_param_mode("traced")
+    first = te.apply(torch.from_numpy(_nv12(7, 2)), output="u8")
+    assert te._effective_param_mode() == "traced" and not te._param_const_fallback
+    buf = te._param_bufs["GHOST"]
+    assert buf.dtype == torch.float32 and buf.dim() == 0 and float(buf) == np.float32(0.35)
+    programs = dict(te._programs)
+    assert te.set_parameter("GHOST", 0.8)
+    assert float(buf) == np.float32(0.8) and te._param_bufs["GHOST"] is buf
+    assert te._programs == programs and len(programs) == 1
+    second = te.apply(torch.from_numpy(_nv12(7, 2)), output="u8")
+    assert first.shape == second.shape == (2, VIEWPORT[1], VIEWPORT[0], 3)
+    assert te.shader_active and te.last_error is None
+    te.set_param_mode("const")
+    assert te._programs == {}

@@ -326,6 +326,11 @@ def _port_engine(path, viewport):
     return e
 
 
+def _kept(e):
+    """What the xbr entry keeps, over the engine's programs: {key: value}."""
+    return {k: v for p in e._programs.values() for k, v in p.walk.tables.items() if k[0] == "xbr-lv2"}
+
+
 def _apply(e, frames):
     out = e.apply(_t(frames), output="u8").numpy()
     assert e.shader_active is True and e.last_error is None
@@ -346,21 +351,21 @@ def test_slice_bit_equal_to_jax_with_cached_maps(standin, monkeypatch):
     np.testing.assert_array_equal(_apply(e, frames), want[VIEWPORT, 0.0])
     assert len(builds) == 1  # a second apply: from the cache
     e.set_viewport(*other)
-    assert e._program.kernel_cache == {}
+    assert _kept(e) == {}
     np.testing.assert_array_equal(_apply(e, frames), want[other, 0.0])
     e.set_viewport(*VIEWPORT)
     np.testing.assert_array_equal(_apply(e, frames), want[VIEWPORT, 0.0])
     assert len(builds) == 3
     assert e.set_parameter("small_details", 1.0)
-    assert e._program.kernel_cache == {}
+    assert _kept(e) == {}
     np.testing.assert_array_equal(_apply(e, frames), want[VIEWPORT, 1.0])
     assert len(builds) == 4
     assert (want[VIEWPORT, 1.0] != want[VIEWPORT, 0.0]).any()
     # Another source size is another key; both stay.
     _apply(e, _frames(32, 1, (48, 64)))
-    assert len(builds) == 5 and len(e._program.kernel_cache) == 2
+    assert len(builds) == 5 and len(_kept(e)) == 2
     # The cache goes with the program.
-    assert e.load_preset(standin[0]) and e._program.kernel_cache == {}
+    assert e.load_preset(standin[0]) and e._programs == {}
     e.unload()
     assert e._program is None
 
@@ -372,7 +377,7 @@ def test_cached_maps_are_the_fresh_build(standin, monkeypatch):
     monkeypatch.setitem(tk._REGISTRY, NAME, wrapped)
     e = _port_engine(standin[0], VIEWPORT)
     _apply(e, _frames(33, 2, SRC_HW))
-    (key, (gathers, maps)), = e._program.kernel_cache.items()
+    (key, (gathers, maps)), = _kept(e).items()
     assert key[:6] == ("xbr-lv2", 0, SRC_HW[1], SRC_HW[0], VIEWPORT[0], VIEWPORT[1])
     bx, fpx, _, _, fpy, ty = fresh[-1]
     np.testing.assert_array_equal(maps.bx.numpy(), np.clip(bx, 0, SRC_HW[1] - 1))
@@ -393,18 +398,18 @@ def test_vertex_stage_reading_frame_count_is_not_cached(standin, monkeypatch, tm
     e = _port_engine(standin[0], VIEWPORT)
     assert e._program.passes[0].vertex_static is True
     cached = _apply(e, frames)
-    assert len(builds) == 1 and len(e._program.kernel_cache) == 1
+    assert len(builds) == 1 and len(_kept(e)) == 1
     plain = _port_engine(standin[0], VIEWPORT)
     plain._program.passes[0].vertex_static = False
     np.testing.assert_array_equal(_apply(plain, frames), cached)
-    assert len(builds) == 1 + 3 and plain._program.kernel_cache == {}
+    assert len(builds) == 1 + 3 and _kept(plain) == {}
 
     path = write_standin(str(tmp_path), reads_frame_count=True)
     moving = _port_engine(path, VIEWPORT)
     assert moving._program.passes[0].vertex_static is False
     got = _apply(moving, frames)
     assert len(builds) == 4 + 3  # derived for each frame
-    assert moving._program.kernel_cache == {}
+    assert _kept(moving) == {}
     want, jcalls = _jax_run(path, VIEWPORT, frames, "u8", 0.0, monkeypatch)
     assert jcalls and not any(jcalls)
     _close(want, got, "u8")
