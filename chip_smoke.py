@@ -16,7 +16,13 @@ the program's front door (a ``FramePipeline`` fed through the frame queue's
 2-phase and nnedi3 entries of the kernel library through their stand-ins,
 then each slice path replayed by CUDA graph against the uncaptured walk
 (``RCTPU_REPLAY=0``; phase 23, bit for bit, parameters traced where a path
-says so) and the command line with ``--param-mode traced`` (phase 24),
+says so: a stateless path is one walk and one graph replay an apply, its
+kernels launched once for the batch) and the command line with
+``--param-mode traced`` (phase 24), then the batched branch (phase 25: each
+stateless path's replayed batch against the CPU port, fc-period grouping
+against ``RCTPU_FC_GROUP=0``, ``apply_streams`` against engines of their
+own, each batched kernel launch against its plain version on its own
+inputs),
 compares them with the port's own CPU run, counts the work that left
 shared memory for global (the blur kernel's wide tiles, the blit's and the
 xbr epilogue's general-path units: none may at the main paths'
@@ -42,6 +48,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -379,21 +386,35 @@ def blit_bound(tex, dst_h, dst_w):
 
 
 @contextlib.contextmanager
-def recorded(module, name):
-    """Record the arguments of every call of ``module.name`` (which still
-    runs) for the duration of a block."""
-    orig = getattr(module, name)
+def launched(module, op, shapes_only=False):
+    """Record the arguments of every launch of the operator ``module.op``
+    (``torch.library``; it still runs) for the duration of a block: the
+    calls its batching rule makes with the whole batch, not the one-frame
+    calls that ``torch.func.vmap`` hands it inside a batched walk.
+    ``shapes_only``: the shape of each launch's first tensor alone."""
+    import torch
+
+    orig = getattr(module, op)
     calls = []
 
     def rec(*args):
-        calls.append(args)
+        if not any(isinstance(a, torch.Tensor) and torch._C._functorch.is_batchedtensor(a) for a in args):
+            calls.append(tuple(args[0].shape) if shapes_only else args)
         return orig(*args)
 
-    setattr(module, name, rec)
+    setattr(module, op, rec)
     try:
         yield calls
     finally:
-        setattr(module, name, orig)
+        setattr(module, op, orig)
+
+
+def walks_an_apply(e, batch):
+    """The walks of one apply of ``batch`` frames of a stateless chain: one
+    for the batch, or one a FrameCount position where the engine groups
+    the batch by the chain's FrameCount period (``RCTPU_FC_GROUP`` on)."""
+    m = e._program.fc_period()
+    return m if m is not None and 2 <= m <= 8 and batch > 1 and batch % m == 0 else 1
 
 
 def in_turns(plain, kernel, iters, timer, plain_iters=None, kernel_timer=None):
@@ -712,8 +733,9 @@ def _mattias_engine(Engine, path, dev=None):
 
 def phase_mattias(gen, Engine, tmp):
     """crt-mattias through Engine.apply, walked uncaptured (the caller sets
-    RCTPU_REPLAY=0: one launch a frame): 3 applies at batch 32 (blur
-    kernel counted), CUDA against the port's CPU run on 2 frames; one
+    RCTPU_REPLAY=0: one walk of the batch an apply, one blur launch of all
+    its frames): 3 applies at batch 32 (blur kernel counted), CUDA against
+    the port's CPU run on 2 frames; one
     apply under RCTPU_BLUR=v1 and one under RCTPU_MATTIAS=preconv, each
     counted on its own, its CUDA run against its CPU run and its warp
     launches against the plain version at their own inputs."""
@@ -742,8 +764,7 @@ def phase_mattias(gen, Engine, tmp):
         check(out.dtype == torch.uint8 and out.device.type == torch.device(DEV).type, f"mattias dtype {out.dtype} on {out.device}")
     launches = {"blur_groups_v2": bg.LAUNCHES}
     wide = bg.wide_tiles(reset=True)
-    check(launches["blur_groups_v2"] == 3 * MATTIAS_BATCH, f"mattias: blur kernel launches {bg.LAUNCHES}, "
-          f"want {3 * MATTIAS_BATCH}")
+    check(launches["blur_groups_v2"] == 3, f"mattias: blur kernel launches {bg.LAUNCHES}, want 3 (one an apply)")
     check(wide == 0, f"mattias: {wide} blur tiles took the wide path")
     check(int(out[:, 0, 0].max()) == 0 and float(out[:, VIEWPORT[1] // 2].float().mean()) > 5,
           "mattias: no curved black corner or no lit centre")
@@ -765,7 +786,7 @@ def phase_mattias(gen, Engine, tmp):
         torch.cuda.synchronize()
         launches["blur_groups_v1"] = bg.LAUNCHES
     _engine_ok(e1, "mattias v1")
-    check(launches["blur_groups_v1"] == 2, f"mattias v1: blur kernel launches {launches['blur_groups_v1']}")
+    check(launches["blur_groups_v1"] == 1, f"mattias v1: blur kernel launches {launches['blur_groups_v1']}, want 1")
     d1 = (o1.cpu().int() - base.int()).abs()
     check(int(d1.max()) <= 2, f"mattias v1 vs v2: max {int(d1.max())} steps")
     say("10", f"crt-mattias under RCTPU_BLUR=v1: ok (launches {launches['blur_groups_v1']}; vs v2 max "
@@ -781,7 +802,8 @@ def phase_mattias(gen, Engine, tmp):
         cpu = ec.apply(frames[:2].cpu(), output="u8")
     _engine_ok(ep, "mattias preconv")
     _engine_ok(ec, "mattias preconv cpu reference run")
-    check(pre["warp_sample"] == 2 * 9 and pre["blur_groups"] == 0, f"mattias preconv launches {pre}")
+    check(pre["warp_sample"] == 9 and pre["blur_groups"] == 0, f"mattias preconv launches {pre}, want a warp "
+          "launch a group for the batch")
     pmax, pfrac = _cmp_u8(op.cpu(), cpu, "mattias preconv cuda vs cpu")
     dp = (op.cpu().int() - base.int()).abs()
     check(float((dp > 5).float().mean()) < 5e-3, f"mattias preconv vs groups: {float((dp > 5).float().mean()):.2e} "
@@ -850,6 +872,13 @@ def _xbr_engine(Engine, path, viewport, small=0.0, dev=None):
     return e
 
 
+def _xbr_kept_maps(e):
+    """The epilogue maps (``EpilogueMaps``) that the engine's xbr-lv2 entry
+    keeps for its one geometry."""
+    (maps,) = [v[1] for p in e._programs.values() for k, v in p.walk.tables.items() if k[0] == "xbr-lv2"]
+    return maps
+
+
 def _xbr_plain_args(S, maps):
     """The plain version's arguments from an epilogue call's (S, the
     geometry's EpilogueMaps)."""
@@ -871,13 +900,13 @@ def phase_xbr_kernel(gen, Engine, path):
         for h, w, vp in [SRC_HW + (VIEWPORT,)] + XBR_GEOMETRIES:
             frame = torch.randint(0, 256, (1, h, w, 3), generator=gen, device=DEV, dtype=torch.uint8)
             e = _xbr_engine(Engine, path, vp, small)
-            # The walk's own call (a graph's capture calls the wrapper too).
-            with recorded(xe, "xbr_epilogue") as calls, env(RCTPU_REPLAY="0"):
+            # The walk's own launch (a graph's capture launches it too).
+            with launched(xe, "_xbr_epilogue_op") as calls, env(RCTPU_REPLAY="0"):
                 e.apply(frame, output="u8")
             _engine_ok(e, f"xbr {h}x{w} -> {vp}")
             what = f"S {tuple(calls[0][0].shape) if calls else None} -> {vp[1]}x{vp[0]} small_details={small:g}"
             check(len(calls) == 1, f"xbr {h}x{w} -> {vp}: the hand kernel did not engage ({len(calls)} calls)")
-            args = calls[0]
+            args = (calls[0][0], _xbr_kept_maps(e))
             xe.general_blocks(reset=True)
             got = xe.xbr_epilogue(*args)
             general = xe.general_blocks(reset=True)
@@ -897,7 +926,7 @@ def phase_xbr_kernel(gen, Engine, path):
 def phase_xbr_slice(gen, Engine, path):
     """xbr-lv2 through Engine.apply, walked uncaptured (the caller sets
     RCTPU_REPLAY=0): 3 applies at batch 64 (epilogue kernel counted: one
-    launch per frame), CUDA against the port's CPU run
+    launch of the batch an apply), CUDA against the port's CPU run
     on 2 frames, and one apply with small_details = 1."""
     import torch
 
@@ -917,7 +946,7 @@ def phase_xbr_slice(gen, Engine, path):
         check(out.dtype == torch.uint8 and out.device.type == torch.device(DEV).type, f"xbr dtype {out.dtype} on {out.device}")
     launches = xe.LAUNCHES
     general = xe.general_blocks(reset=True)
-    check(launches == 3 * XBR_BATCH, f"xbr: epilogue kernel launches {launches}, want {3 * XBR_BATCH}")
+    check(launches == 3, f"xbr: epilogue kernel launches {launches}, want 3 (one an apply)")
     check(general == 0, f"xbr: {general} epilogue blocks took the general path")
     kept = [k for p in e._programs.values() for k in p.walk.tables if k[0] == "xbr-lv2"]
     check(len(kept) == 1, f"xbr: {len(kept)} geometries kept, want 1")
@@ -940,10 +969,10 @@ def phase_xbr_slice(gen, Engine, path):
     out = es.apply(frames, output="u8")
     torch.cuda.synchronize()
     _engine_ok(es, "xbr small_details=1")
-    check(xe.LAUNCHES == XBR_BATCH and tuple(out.shape) == (XBR_BATCH, vh, vw, 3),
+    check(xe.LAUNCHES == 1 and tuple(out.shape) == (XBR_BATCH, vh, vw, 3),
           f"xbr small_details=1: launches {xe.LAUNCHES}, shape {tuple(out.shape)}")
     d = (out.int() - e.apply(frames, output="u8").int()).abs()
-    say("14", f"xbr-lv2 small_details=1, {XBR_BATCH} frames: ok (launches {XBR_BATCH}; differs from "
+    say("14", f"xbr-lv2 small_details=1, {XBR_BATCH} frames: ok (launches 1; differs from "
         f"small_details=0 in {float((d != 0).float().mean()):.2e} of values)")
     return e, frames, launches
 
@@ -1154,7 +1183,7 @@ def phase_apply_u8(gen, Engine):
 def phase_mip(gen, Engine, tmp):
     """The two mipmap_input presets: mip-glow (affine taps, one level of
     detail) and mip-warp (warped taps, one warp_sample launch per pyramid
-    level and frame). The inputs that the two runs give the blit and the
+    level for the batch). The inputs that the two runs give the blit and the
     warp kernel are recorded, and after the counts are read each kernel is
     held against its plain version on them: every pyramid level down to
     1x2 texels under the repeat wrap, and the blit from the glow pass's
@@ -1179,12 +1208,8 @@ def phase_mip(gen, Engine, tmp):
         check(e.load_preset(path), f"load {path}: {e.last_error}")
         return e
 
-    warp_calls, blit_calls = [], []
-    warp_kernel, blit_kernel = ws.warp_sample, engine_module.blit_u8
-
-    def warp_rec(tex, u, v, **kw):
-        warp_calls.append((tex, u, v, kw))
-        return warp_kernel(tex, u, v, **kw)
+    blit_calls = []
+    blit_kernel = engine_module.blit_u8
 
     def blit_rec(tex, dst_w, dst_h):
         blit_calls.append(tex)
@@ -1192,20 +1217,22 @@ def phase_mip(gen, Engine, tmp):
 
     rs.LAUNCHES = ws.LAUNCHES = 0
     outs = {}
-    ws.warp_sample, engine_module.blit_u8 = warp_rec, blit_rec
+    engine_module.blit_u8 = blit_rec
     try:
-        for name, path in (("mip-glow", glow), ("mip-warp", warp)):
-            e = engine(path, DEV)
-            outs[name] = e.apply(frames, output="u8")
-            torch.cuda.synchronize()
-            _engine_ok(e, name)
-            check(tuple(outs[name].shape) == (MIP_BATCH, vh, vw, 3) and outs[name].dtype == torch.uint8,
-                  f"{name}: {outs[name].dtype} {tuple(outs[name].shape)}")
+        with launched(ws, "_warp_sample_op") as launches:
+            for name, path in (("mip-glow", glow), ("mip-warp", warp)):
+                e = engine(path, DEV)
+                outs[name] = e.apply(frames, output="u8")
+                torch.cuda.synchronize()
+                _engine_ok(e, name)
+                check(tuple(outs[name].shape) == (MIP_BATCH, vh, vw, 3) and outs[name].dtype == torch.uint8,
+                      f"{name}: {outs[name].dtype} {tuple(outs[name].shape)}")
     finally:
-        ws.warp_sample, engine_module.blit_u8 = warp_kernel, blit_kernel
+        engine_module.blit_u8 = blit_kernel
+    warp_calls = [(tex, u, v, {"filter_linear": lin, "wrap_mode": mode}) for tex, u, v, lin, mode in launches]
     counts = (rs.LAUNCHES, ws.LAUNCHES)
-    check(counts[1] == MIP_BATCH * levels, f"mip-warp: {counts[1]} warp_sample launches, want {MIP_BATCH} frames x "
-          f"{levels} levels")
+    check(counts[1] == levels, f"mip-warp: {counts[1]} warp_sample launches, want one a level ({levels}) for the "
+          f"batch of {MIP_BATCH}")
     check(counts[0] == 2, f"mip presets: {counts[0]} resample_u8 launches, want 2")
     # The pyramid is in use: the glow pass loses the texture's fine detail.
     flat = float(outs["mip-glow"].float().std())
@@ -1216,14 +1243,15 @@ def phase_mip(gen, Engine, tmp):
         res.append(_cmp_u8(outs[name][:2].cpu(), cpu, f"{name} cuda vs cpu"))
     say("19", f"mipmap_input presets {MIP_BATCH}x{h}x{w} -> {vh}x{vw} u8: ok (mip-glow cuda vs cpu on 2 frames: max "
         f"{res[0][0]} step, {res[0][1]:.2e}; mip-warp: max {res[1][0]} step, {res[1][1]:.2e}; warp_sample launches "
-        f"{counts[1]} = {MIP_BATCH} frames x {levels} levels)")
+        f"{counts[1]} = {levels} levels, each of the {MIP_BATCH} frames)")
 
     # Each kernel against its plain version on what the runs gave it (these
     # launches come after the counts were read). The end-to-end gate above
     # cannot see the upper levels: their blend weight is 0 where the level
     # of detail stays below them.
     check(len(warp_calls) == counts[1] and len(blit_calls) == counts[0], "mip: a launch went unrecorded")
-    shapes = sorted({tuple(c[0].shape[:2]) for c in warp_calls}, reverse=True)
+    shapes = sorted({tuple(c[0].shape[1:3]) for c in warp_calls}, reverse=True)
+    check(all(c[0].shape[0] == MIP_BATCH for c in warp_calls), "mip-warp: a level was not launched for the batch")
     want_shapes = [(max(h >> k, 1), max(w >> k, 1)) for k in range(levels)]
     check(shapes == want_shapes, f"mip-warp: sampled levels {shapes}, want {want_shapes}")
     for tex, u, v, kw in warp_calls:
@@ -1294,7 +1322,8 @@ def engaged(names):
 
 def _library_slice(gen, Engine, phase, label, path, names, batch, passes, variants):
     """A kernel-library family through Engine.apply at 1080p: 3 applies at
-    ``batch`` (every pass through its entry, one blit launch an apply),
+    ``batch`` (every pass through its entry in each walk of the batch, one
+    blit launch an apply),
     CUDA against the port's CPU run on 2 frames, one apply at
     VARIANT_BATCH of each (label, preset) in ``variants`` (also against
     the CPU run). Returns the engine, the frames, the blit launches and
@@ -1331,8 +1360,9 @@ def _library_slice(gen, Engine, phase, label, path, names, batch, passes, varian
     finally:
         engine_module.blit_u8 = blit_kernel
     launches, general = rs.LAUNCHES, rs.general_blocks(reset=True)
-    check(calls == {"engaged": 3 * batch * passes, "declined": 0}, f"{label}: entries {calls}, want "
-          f"{3 * batch * passes} engaged")
+    walks = walks_an_apply(e, batch)
+    check(calls == {"engaged": 3 * walks * passes, "declined": 0}, f"{label}: entries {calls}, want "
+          f"{3 * walks * passes} engaged ({walks} walks an apply)")
     check(launches == 3 and len(blits) == 3, f"{label}: {launches} resample_u8 launches, want 3")
     check(general == 0, f"{label}: {general} resample_u8 units of work took the general path")
     check(int(e._states[(h, w) + VIEWPORT].frame_count) == 3 * batch, f"{label}: frame count not carried")
@@ -1347,10 +1377,12 @@ def _library_slice(gen, Engine, phase, label, path, names, batch, passes, varian
                 n = VARIANT_BATCH if (d != "cpu" and name != label) else 2
                 o = ev.apply(frames[:n].to(d), output="u8")
             _engine_ok(ev, f"{name} {d}")
-            check(vcalls == {"engaged": n * passes, "declined": 0}, f"{name} {d}: entries {vcalls}")
+            want = walks_an_apply(ev, n) * passes
+            check(vcalls == {"engaged": want, "declined": 0}, f"{name} {d}: entries {vcalls}, want {want}")
             outs.append(o[:2].cpu())
         res[name] = _cmp_u8(outs[0], outs[1], f"{name} cuda vs cpu")
-    say(phase, f"{label} {batch}x{h}x{w} rgb -> {vh}x{vw} u8, 3 applies: ok (entries engaged {calls['engaged']}, "
+    say(phase, f"{label} {batch}x{h}x{w} rgb -> {vh}x{vw} u8, 3 applies: ok (entries engaged {calls['engaged']}: "
+        f"{walks} walk(s) an apply, {passes} passes; "
         f"blit from {blits[0][1:3]}, resample_u8 launches {launches}, general-path units {general}; cuda vs cpu on 2 "
         f"frames: " + "; ".join(f"{n} max {d} step, {f:.2e}" for n, (d, f) in res.items())
         + f"; variants at batch {VARIANT_BATCH})")
@@ -1460,19 +1492,43 @@ def kernel_runs(fn):
     return {k: sum(fname in n for n in names) for k, (_, _, fname) in _COUNTERS.items()}
 
 
+# The operators whose launches phase 23 records the shapes of (module under
+# retrocapture_tpu_torch.ops.cuda, operator), by the kernel's JSON name.
+_OPS = {
+    "warp_sample": ("warp_sample", "_warp_sample_op"),
+    "blur_groups_v2": ("blur_groups", "_blur_groups_op"),
+    "xbr_epilogue": ("xbr_epilogue", "_xbr_epilogue_op"),
+}
+
+
+@contextlib.contextmanager
+def launch_shapes():
+    """The shapes of the launches of the operators of _OPS in a block, by
+    kernel name."""
+    import importlib
+
+    with contextlib.ExitStack() as stack:
+        yield {
+            k: stack.enter_context(launched(importlib.import_module(f"retrocapture_tpu_torch.ops.cuda.{m}"), op, True))
+            for k, (m, op) in _OPS.items()
+        }
+
+
 def phase_replay(gen, Engine, tmp, card):
     """Each slice path at 1080p through an engine that replays its chain by
     CUDA graph and one that walks it (RCTPU_REPLAY=0): bit-equal in u8 on
     every counted apply (a traced parameter changed between them) and in
-    f32 on one more; the replaying engine walks nothing uncaptured; each
-    mode's frames/s over 3 windows, device busy and idle share, first-apply
-    seconds. In one more replayed apply of each path the device runs each
-    kernel as often as the walk launches it in an apply, and the wrappers
-    launch none but the blit (torch.profiler's count of the kernel's
-    executions). Writes the paths' results to chiprun_out/replay.json.
-    Returns the replaying runs' launch calls (the walked first frame, the
-    capture and the blits) and the kernels' executions inside the graphs,
-    summed over the paths."""
+    f32 on one more; the replaying engine walks nothing uncaptured; a
+    stateless path is one walk and one graph replay an apply (the batched
+    branch), a temporal one a replay a frame; each mode's frames/s over 3
+    windows, device busy and idle share, first-apply seconds and peak
+    device memory, and the shapes of the kernels' launches. In one more
+    replayed apply of each path the device runs each kernel as often as the
+    walk launches it in an apply, and the wrappers launch none but the blit
+    (torch.profiler's count of the kernel's executions). Writes the paths'
+    results to chiprun_out/replay.json. Returns the replaying runs' launch
+    calls (the first walk, the capture and the blits) and the kernels'
+    executions inside the graphs, summed over the paths."""
     import torch
 
     h, w = SRC_HW
@@ -1484,7 +1540,7 @@ def phase_replay(gen, Engine, tmp, card):
         shape = (batch, h * 3 // 2, w) if fmt == "nv12" else (batch, h, w, 3)
         frames = [torch.randint(0, 256, shape, generator=gen, device=DEV, dtype=torch.uint8)
                   for _ in range(REPLAY_APPLIES)]
-        engines, outs, first_s, windows, counted = {}, {}, {}, {}, {}
+        engines, outs, first_s, windows, counted, peak = {}, {}, {}, {}, {}, {}
         for mode in ("1", "0"):
             e = Engine(viewport=VIEWPORT, device=DEV)
             check(e.load_preset(str(path)), f"23 {name}: load_preset: {e.last_error}")
@@ -1495,14 +1551,21 @@ def phase_replay(gen, Engine, tmp, card):
             with env(RCTPU_REPLAY=mode):
                 _counts(reset=True)
                 got, seconds = [], []
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()  # what the run holds before this mode's first apply
                 for k in range(REPLAY_APPLIES):
                     if k and param is not None:
                         check(e.set_parameter(param[0], param[1][k - 1]), f"23 {name}: set_parameter")
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
-                    got.append(e.apply(frames[k], output="u8"))
+                    with launch_shapes() if (mode, k) == ("0", 0) else contextlib.nullcontext() as shapes:
+                        got.append(e.apply(frames[k], output="u8"))
                     torch.cuda.synchronize()
                     seconds.append(time.perf_counter() - t0)
+                    if (mode, k) == ("0", 0):
+                        kernel_shapes = {n: v for n, v in shapes.items() if v}
+                peak[mode] = (torch.cuda.max_memory_allocated() - held) / 2**30
                 # The first apply walks (and captures); the later ones are
                 # timing windows.
                 first_s[mode], windows[mode] = seconds[0], seconds[1:]
@@ -1518,9 +1581,14 @@ def phase_replay(gen, Engine, tmp, card):
         check(torch.equal(f32["1"], f32["0"]), f"23 {name}: the f32 apply replayed differs from the walk")
         del outs, f32
         rp = engines["1"]
+        temporal = rp._program.uses_history() or rp._program.uses_feedback()
         stats = rp.replay_stats()
         check(stats["uncaptured_applies"] == 0, f"23 {name}: {stats['uncaptured_applies']} applies walked uncaptured")
-        check(stats["graphs_captured"] == 1, f"23 {name}: {stats['graphs_captured']} graphs captured, want 1")
+        # A temporal chain's frame step is one graph; a stateless chain's
+        # batch is one, per batch size (the f32 apply above is another).
+        want_graphs = 1 if temporal or batch == REPLAY_F32_BATCH else 2
+        check(stats["graphs_captured"] == want_graphs,
+              f"23 {name}: {stats['graphs_captured']} graphs captured, want {want_graphs}")
         # The walk launches each kernel the same number of times an apply;
         # a replayed apply must run it as often on the device, with no
         # launch call but the blit's.
@@ -1529,8 +1597,12 @@ def phase_replay(gen, Engine, tmp, card):
             check(n % REPLAY_APPLIES == 0, f"23 {name}: {k} launched {n} times in {REPLAY_APPLIES} walked applies")
             per_apply[k] = n // REPLAY_APPLIES
         _counts(reset=True)
+        replays0 = rp.replay_stats()["replays"]
         runs = kernel_runs(lambda: rp.apply(frames[0], output="u8"))
         calls = _counts()
+        replays = rp.replay_stats()["replays"] - replays0
+        check(replays == (batch if temporal else 1), f"23 {name}: {replays} graph replays in an apply of {batch}, "
+              f"want {batch if temporal else 1}")
         check(runs == per_apply, f"23 {name}: a replayed apply ran {runs} on the device, the walk launches {per_apply}")
         graph_runs = {k: runs[k] - calls[k] for k in runs}
         check(calls["resample_u8"] == 1 and sum(calls.values()) == 1,
@@ -1555,18 +1627,21 @@ def phase_replay(gen, Engine, tmp, card):
             fps = sorted(batch / t for t in seconds)
             modes[mode] = {"frames_per_s": fps, "device_busy_ms": busy, "median_apply_ms": wall,
                            "idle_pct": 100.0 * (1.0 - busy / wall), "first_apply_s": first_s[mode],
-                           "launch_calls": counted[mode]}
+                           "peak_memory_gib": peak[mode], "launch_calls": counted[mode]}
             say("23", f"{name} batch {batch}, RCTPU_REPLAY={mode}: " + _rates("", batch, seconds, card).lstrip(": ")
                 + f"; device busy {busy:.1f} ms an apply, idle {modes[mode]['idle_pct']:.1f}% of the median "
-                f"{wall:.1f} ms; first apply {first_s[mode]:.2f} s")
+                f"{wall:.1f} ms; first apply {first_s[mode]:.2f} s; peak memory {peak[mode]:.2f} GiB above what "
+                "the run held before")
         stats = rp.replay_stats()
-        record["paths"].append({"name": name, "batch": batch, "replay": modes["1"], "walk": modes["0"],
-                                "replay_stats": stats, "kernel_runs_replayed_apply": runs,
-                                "graph_runs_replayed_apply": graph_runs})
+        record["paths"].append({"name": name, "batch": batch, "temporal": temporal, "replay": modes["1"],
+                                "walk": modes["0"], "replay_stats": stats, "replays_an_apply": replays,
+                                "kernel_runs_replayed_apply": runs, "graph_runs_replayed_apply": graph_runs,
+                                "kernel_launch_shapes": kernel_shapes})
         say("23", f"{name}: replay == walk in u8 ({REPLAY_APPLIES} applies of {batch}"
             + (f", {param[0]} set between them" if param else "") + f") and f32 ({REPLAY_F32_BATCH} frames); "
-            f"replay_stats {stats}; launch calls {counted['1']}; one replayed apply ran {runs} on the device, "
-            f"{graph_runs} of them inside the graph")
+            f"replay_stats {stats}; graph replays an apply {replays} ({'a frame' if temporal else 'the batch'}); "
+            f"launch calls {counted['1']}; one replayed apply ran {runs} on the device, {graph_runs} of them inside "
+            f"the graph; kernel launch shapes {kernel_shapes}")
         del engines, frames
         torch.cuda.empty_cache()
     # The blit runs once a batch after the replays. Its alternative, inside
@@ -1599,6 +1674,178 @@ def phase_replay(gen, Engine, tmp, card):
     (out / "replay.json").write_text(json.dumps(record, indent=1))
     say("23", f"wrote {out / 'replay.json'}")
     return launches, in_graph
+
+
+# Phase 25: the batched kernel launches of the stateless paths, each held to
+# its plain version on its own recorded inputs: (kernel, phase-23 path,
+# module under retrocapture_tpu_torch.ops.cuda, operator).
+BATCHED_LAUNCHES = [
+    ("warp_sample", "warp-curve traced", "warp_sample", "_warp_sample_op"),
+    ("blur_groups_v2", "crt-mattias traced", "blur_groups", "_blur_groups_op"),
+    ("xbr_epilogue", "xbr-lv2", "xbr_epilogue", "_xbr_epilogue_op"),
+]
+STREAMS_25 = (4, 32)  # apply_streams of feedback-ghost: S streams of T frames
+XBR_PLAIN_CHUNK = 8  # frames a call of the plain xbr epilogue (bounds its memory)
+
+
+def _path_engine(Engine, path, fmt, param, dev=DEV):
+    e = Engine(viewport=VIEWPORT, device=dev)
+    check(e.load_preset(str(path)), f"25: load {path}: {e.last_error}")
+    e.set_input_format(fmt)
+    if param is not None:
+        e.set_param_mode("traced")
+    return e
+
+
+def phase_batched(gen, Engine, tmp, card):
+    """The batched branch of the stateless chains on the card:
+
+    * each stateless phase-23 path's batch replayed by its CUDA graph (a
+      warm apply, ``reset_state``, the apply that replays) against the
+      port's CPU run of its first 2 frames: at most 1 u8 step in at most
+      0.1% of values;
+    * ntsc-320px at batch 128, fc-period grouped against
+      ``RCTPU_FC_GROUP=0``, two applies each: bit-equal;
+    * ``apply_streams`` of feedback-ghost on [4, 32, 240, 320, 3] (one
+      graph of the 4 streams' step, replayed 32 times) against four
+      engines, two calls: bit-equal;
+    * each batched kernel launch of the paths (BATCHED_LAUNCHES), recorded
+      in a walked apply, against its plain version on the same inputs, bit
+      for bit, timed in turns beside it, with its bound and, for the warp,
+      F.grid_sample over the same batch.
+
+    Returns {kernel: its batched launch's shape, |d|, times and bound}."""
+    import importlib
+
+    import torch
+    import torch.nn.functional as F
+
+    h, w = SRC_HW
+    vw, vh = VIEWPORT
+    paths = {name: (path, fmt, batch, param) for name, path, fmt, batch, param in _replay_paths(tmp)}
+    for name, (path, fmt, batch, param) in paths.items():
+        e = _path_engine(Engine, path, fmt, param)
+        if e._program.uses_history() or e._program.uses_feedback():
+            continue
+        frames = torch.randint(0, 256, (batch, h, w, 3), generator=gen, device=DEV, dtype=torch.uint8)
+        e.apply(frames, output="u8")
+        e.reset_state()  # the programs stay: the next apply replays from FrameCount 0
+        replays = e.replay_stats()["replays"]
+        out = e.apply(frames, output="u8")
+        torch.cuda.synchronize()
+        _engine_ok(e, f"25 {name}")
+        check(e.replay_stats()["replays"] == replays + 1, f"25 {name}: the apply did not replay the batch's graph")
+        cpu = _path_engine(Engine, path, fmt, param, "cpu").apply(frames[:2].cpu(), output="u8")
+        dmax, frac = _cmp_u8(out[:2].cpu(), cpu, f"25 {name} batched graph vs cpu")
+        say("25", f"{name}: the batch of {batch} replayed by one graph vs the port's CPU run of its first 2 frames: "
+            f"max {dmax} step, {frac:.2e} of values")
+        del e, out, frames
+        torch.cuda.empty_cache()
+
+    path, fmt, batch, _ = paths["ntsc-320px"]
+    frames = [torch.randint(0, 256, (batch, h, w, 3), generator=gen, device=DEV, dtype=torch.uint8) for _ in range(2)]
+    got = {}
+    for group in ("1", "0"):
+        e = _path_engine(Engine, path, fmt, None)
+        with env(RCTPU_FC_GROUP=group):
+            got[group] = [e.apply(f, output="u8") for f in frames]
+        _engine_ok(e, f"25 ntsc RCTPU_FC_GROUP={group}")
+        groups = {k[-1] for k in e._programs}
+        check(groups == ({(2, 0)} if group == "1" else {None}), f"25 ntsc RCTPU_FC_GROUP={group}: programs {groups}")
+    for k in range(2):
+        check(torch.equal(got["1"][k], got["0"][k]), f"25 ntsc apply {k}: grouped differs from RCTPU_FC_GROUP=0")
+    say("25", f"ntsc-320px at batch {batch}, two applies: fc-period grouped (2 walks of {batch // 2}, one host "
+        f"FrameCount each) == RCTPU_FC_GROUP=0, bit for bit")
+    del got, frames
+    torch.cuda.empty_cache()
+
+    s_n, t_n = STREAMS_25
+    streams = [torch.randint(0, 256, (s_n, t_n, h, w, 3), generator=gen, device=DEV, dtype=torch.uint8)
+               for _ in range(2)]
+    e = Engine(viewport=VIEWPORT, device=DEV)
+    check(e.load_preset(str(PRESET)), f"25 streams: load_preset: {e.last_error}")
+    seconds, outs = [], []
+    for f in streams:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(e.apply_streams(f))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    _engine_ok(e, "25 streams")
+    stats = e.replay_stats()
+    check(stats["graphs_captured"] == 1 and stats["uncaptured_applies"] == 0, f"25 streams: replay_stats {stats}")
+    for i in range(s_n):
+        own = Engine(viewport=VIEWPORT, device=DEV)
+        check(own.load_preset(str(PRESET)), "25 streams: load_preset")
+        for k, f in enumerate(streams):
+            check(torch.equal(outs[k][i], own.apply(f[i])), f"25 streams: stream {i}, call {k} differs from an "
+                  "engine of its own")
+    say("25", f"apply_streams feedback-ghost [{s_n},{t_n},{h},{w},3], two calls: each stream == an engine of its own "
+        f"(bit for bit); one graph of the {s_n} streams' step, replay_stats {stats}; second call "
+        f"{s_n * t_n / seconds[1]:.1f} frames/s  ({card})")
+    del outs, streams, e
+    torch.cuda.empty_cache()
+
+    results = {}
+    for kernel, pname, mod, op in BATCHED_LAUNCHES:
+        m = importlib.import_module(f"retrocapture_tpu_torch.ops.cuda.{mod}")
+        path, fmt, batch, param = paths[pname]
+        frames = torch.randint(0, 256, (batch, h, w, 3), generator=gen, device=DEV, dtype=torch.uint8)
+        e = _path_engine(Engine, path, fmt, param)
+        with env(RCTPU_REPLAY="0"), launched(m, op) as calls:
+            e.apply(frames, output="u8")
+        _engine_ok(e, f"25 {pname}")
+        check(len(calls) == 1, f"25 {pname}: {len(calls)} {kernel} launches in a walked apply, want 1")
+        args = calls[0]
+        check(args[0].shape[0] == batch, f"25 {pname}: {kernel} launched over {args[0].shape[0]} frames, want {batch}")
+        op_fn = getattr(m, op)
+        if kernel == "warp_sample":
+            tex, u, v, lin, mode = args
+            plain = lambda: m.warp_sample_plain(tex, u, v, filter_linear=lin, wrap_mode=mode)  # noqa: E731
+            in_bytes = nbytes(tex, u, v)
+            out_bytes = tex.shape[0] * u.numel() * tex.shape[-1] * 4
+            flops = 40 * tex.shape[0] * u.numel()  # 4 taps x 4 channels and the tap positions, per pixel
+            grid = torch.stack([u * 2.0 - 1.0, v * 2.0 - 1.0], dim=-1)[None].expand(tex.shape[0], -1, -1, -1)
+            t_nchw = tex.permute(0, 3, 1, 2).contiguous()
+            check(lin and mode == "clamp_to_border", f"25 warp: {lin} {mode}")
+            lib = lambda: F.grid_sample(t_nchw, grid, mode="bilinear", padding_mode="zeros", align_corners=False)  # noqa: E731
+        elif kernel == "blur_groups_v2":
+            tex, u, v, params, chan, channels = args
+            plain = lambda: m._plain(tex, u, v, params, channels)  # noqa: E731
+            in_bytes = nbytes(tex, u, v)
+            out_bytes = len(set(channels)) * tex.shape[0] * u.numel() * 4
+            flops = 2 * 25 * len(channels) * tex.shape[0] * u.numel()
+            lib = None
+        else:
+            S, bx, fpx, fpy = args[:4]
+
+            def plain():
+                return torch.cat([m.xbr_epilogue_plain(S[i:i + XBR_PLAIN_CHUNK], bx, fpx, fpy)
+                                  for i in range(0, S.shape[0], XBR_PLAIN_CHUNK)])
+
+            in_bytes = nbytes(S, bx, fpx, fpy) + 4 * 65
+            out_bytes = S.shape[0] * S.shape[2] * bx.shape[0] * 16
+            flops = 253 * S.shape[0] * S.shape[2] * bx.shape[0]
+            lib = None
+        got = op_fn(*args)
+        want = plain()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(bool(torch.equal(got, want)), f"25 {kernel} at {tuple(args[0].shape)}: not bit-equal to its plain "
+              f"version (max |d| {err:.3e})")
+        del got, want
+        plain_ms, k_ms = in_turns(plain, lambda: op_fn(*args), 10, device_ms,
+                                  kernel_timer=launch_timer(kernel.rsplit("_v", 1)[0]), plain_iters=1)
+        b_ms, b_by = bound(in_bytes + out_bytes, flops)
+        lib_ms = None if lib is None else _product_ms(lib, 10)
+        results[kernel] = {"shape": list(args[0].shape), "max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms,
+                           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+        say("25", f"{kernel} launched once over the batch of {pname} ({tuple(args[0].shape)}): bit-equal to its "
+            f"plain version; kernel {k_ms:.4f} ms ({k_ms / batch:.4f} a frame), plain {plain_ms:.3f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by})" + ("" if lib_ms is None else f", F.grid_sample {lib_ms:.4f} ms") + f"  ({card})")
+        del calls, args, e, frames
+        torch.cuda.empty_cache()
+    return results
 
 
 def phase_cli_traced():
@@ -1699,6 +1946,21 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this run needs an NVIDIA GPU")
+    # No op of a batched walk may take vmap's per-example fallback (a loop
+    # over the frames): every such warning of the run is kept, and any
+    # fails the run at its end.
+    fallbacks = set()
+    show = warnings.showwarning
+
+    def keep_fallbacks(message, category, *args, **kwargs):
+        if "batching rule" in str(message):
+            fallbacks.add(str(message).split(".")[0])
+        else:
+            show(message, category, *args, **kwargs)
+
+    torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+    warnings.filterwarnings("always", message=".*batching rule.*")
+    warnings.showwarning = keep_fallbacks
     sys.path.insert(0, str(REPO))
     sys.path.insert(0, str(REPO / "tests"))  # the stand-in shaders the CPU tests drive too
 
@@ -1823,8 +2085,9 @@ def main() -> int:
         # Phases 10-11: the crt-mattias path and the xphase path, each
         # counted from zero.
         # Phases 10, 12, 14 and 15 walk uncaptured, as in the slices that
-        # brought them up: they count one launch a frame (phase 23 replays
-        # both paths by graph and counts the graph's launches on the device).
+        # brought them up: they count the launches of each walk, one of the
+        # batch (phase 23 replays both paths by graph and counts the graph's
+        # launches on the device).
         with env(RCTPU_REPLAY="0"):
             meng, mframes, mlaunches = phase_mattias(gen, Engine, Path(td))
         launches.update(mlaunches)
@@ -1843,10 +2106,12 @@ def main() -> int:
         say("12", f"resample_u8_xphase [{SLICE_BATCH},{h},{w},3] -> [{SLICE_BATCH},{VIEWPORT[1]},{VIEWPORT[0]},3]: "
             f"device time kernel {xp_ms:.3f} ms, plain {xp_plain:.3f} ms; the resample_u8 kernel on the same "
             f"shape {rs_ms:.3f} ms (phase 7)  ({card})")
-        # blur_groups at the main path's own shape (one frame a launch, as
-        # the engine calls it) and at batch 32 in one launch.
+        # blur_groups on one frame and at batch 32 in one launch (as the
+        # engine's batched walk calls it).
         btex1 = btex[:1]
-        blur_ms = {}
+        blur_ms, blur32_ms = {}, {}
+        blur32_shape = list(btex.shape)
+        blur32_bound = bound(nbytes(btex, bu, bv) + 3 * btex.shape[0] * nbytes(bu), 2 * 25 * len(bgroups) * btex.shape[0] * bu.numel())
         for mode in ("v2", "v1"):
             tables = bg.weight_tables(bgroups, mode)
             with env(RCTPU_BLUR=mode):
@@ -1860,10 +2125,10 @@ def main() -> int:
                     lambda: bg.blur5x5_groups(btex, bu, bv, bgroups),
                     20, device_ms, kernel_timer=launch_timer("blur_groups"), plain_iters=2,
                 )
-            blur_ms[mode] = (k_ms, plain_ms)
+            blur_ms[mode], blur32_ms[mode] = (k_ms, plain_ms), (k32_ms, plain32_ms)
             say("12", f"blur5x5_groups {mode} [1,{h},{w},3] -> [1,{VIEWPORT[1]},{VIEWPORT[0]}] x 3 channels (one "
-                f"frame a launch, as the engine calls it): device time kernel {k_ms:.4f} ms, plain {plain_ms:.3f} ms; "
-                f"[{MATTIAS_BATCH},{h},{w},3] in one launch: kernel {k32_ms:.3f} ms ({k32_ms / MATTIAS_BATCH:.4f} a "
+                f"frame): device time kernel {k_ms:.4f} ms, plain {plain_ms:.3f} ms; [{MATTIAS_BATCH},{h},{w},3] in "
+                f"one launch (as the batched walk calls it): kernel {k32_ms:.3f} ms ({k32_ms / MATTIAS_BATCH:.4f} a "
                 f"frame), plain {plain32_ms:.3f} ms  ({card})")
         with env(RCTPU_REPLAY="0"):
             torch.cuda.synchronize()
@@ -1946,7 +2211,8 @@ def main() -> int:
 
         # Phases 21-22: the ntsc 2-phase and nnedi3 entries of the kernel
         # library, each path's blit launches counted from zero. They count
-        # the entries' calls, one a frame in a walk: they walk uncaptured
+        # the entries' calls, a pass's one a walk of the batch (ntsc-320px
+        # walks its batch in two FrameCount groups): they walk uncaptured
         # (phase 23 replays the ntsc path).
         with env(RCTPU_REPLAY="0"):
             ntsc_rs, ntsc_kd, ntsc_band = phase_ntsc(gen, Engine, td, card)
@@ -1988,6 +2254,9 @@ def main() -> int:
             f"replayed apply a path: {in_graph}")
         phase_cli_traced()
 
+        # Phase 25: the batched branch of the stateless chains.
+        batched = phase_batched(gen, Engine, Path(td), card)
+
     # Each kernel's bound at its timed shape: inputs read once, outputs
     # written once; f32 operations counted per output value or pixel.
     vw, vh = VIEWPORT
@@ -1997,8 +2266,9 @@ def main() -> int:
         "resample_u8": blit_bound(tex, vh, vw),
         "resample_xphase": blit_bound(tex, vh, vw),
         "warp_sample": bound(nbytes(wtex, wu0, wv0) + px * 4 * 4, 40 * px),  # coords + 4 taps x 4 channels
-        # One frame, the shape of each of the main path's launches.
+        # One frame, and the batch of 32 in one launch.
         "blur_groups": bound(nbytes(btex1, bu, bv) + 3 * px * 4, 2 * 25 * len(bgroups) * px),
+        "blur_groups_32": blur32_bound,
         # 253 f32 operations per pixel: 15 colour scales, 4 corners x 35
         # (4 ramps of 7, 4 flag products, 3 max), 72 for the mixes, 17 for
         # c_df and the select, 9 for the last mix.
@@ -2059,6 +2329,23 @@ def main() -> int:
          "per_apply": NNEDI3_BATCH},
     ]
     kernels[0]["general_path_units"] = rs_general
+    # The three kernels that the stateless paths launch once a batch: their
+    # numbers at the batched launch the main path makes (phase 25; blur v1,
+    # RCTPU_BLUR=v1 only, at batch 32 from phase 12), the one-frame launch
+    # of earlier slices beside them.
+    for k in kernels:
+        if k["name"] in batched or k["name"] == "blur_groups_v1":
+            k["single_frame"] = {f: k[f] for f in ("ms", "plain_ms", "bound_ms", "library_ms")}
+            if k["name"] in batched:
+                b = batched[k["name"]]
+                k.update({f: b[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+                k["max_abs_err"] = max(k["max_abs_err"], b["max_abs_err"])
+                k["batched_launch_shape"] = b["shape"]
+            else:
+                k["ms"], k["plain_ms"] = blur32_ms["v1"]
+                k["bound_ms"], k["bound_by"] = bounds["blur_groups_32"]
+                k["batched_launch_shape"] = blur32_shape
+    check(not fallbacks, f"vmap took its per-example fallback for: {sorted(fallbacks)}")
     kernels[-1]["general_path_blocks"] = xe.general_blocks()
     check(kernels[-1]["general_path_blocks"] == 0, "xbr_epilogue: blocks took the general path at the main shape")
     print(json.dumps({"kernels": kernels}), flush=True)

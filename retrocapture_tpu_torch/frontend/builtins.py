@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from retrocapture_tpu_torch.frontend import tnp
-from retrocapture_tpu_torch.policy import fma32
+from retrocapture_tpu_torch.policy import bitcast, fma32
 from retrocapture_tpu_torch.frontend.values import (
     BOOL,
     FLOAT,
@@ -694,7 +694,7 @@ def _b_float_bits_to_int(a: V) -> V:
     view = (
         np.asarray(d, np.float32).view(np.int32)
         if xp is np
-        else d.to(torch.float32).view(torch.int32)
+        else bitcast(d.to(torch.float32), torch.int32)
     )
     return V(view, a.type.with_base("int"))
 
@@ -705,7 +705,7 @@ def _b_int_bits_to_float(a: V) -> V:
     view = (
         np.asarray(d, np.int32).view(np.float32)
         if xp is np
-        else d.to(torch.int32).view(torch.float32)
+        else bitcast(d.to(torch.int32), torch.float32)
     )
     return V(view, a.type.with_base("float"))
 

@@ -1101,14 +1101,12 @@ class ShaderEval:
                     else:
                         d = smart_device(obj.data, self.dev)
                         cd = smart_device(col.data, self.dev)
-                        cb = tuple(cd.shape[:-1])
-                        if cb and tuple(d.shape[: len(cb)]) != cb:
-                            # batched column into an unbatched matrix
-                            d = d.expand(cb + tuple(d.shape[-2:]))
-                        # A fresh copy: the old matrix may be shared.
-                        d = d.clone()
-                        d[..., i, :] = cd
-                        nv = V(d, obj.type)
+                        # Out of place (the old matrix may be shared, and
+                        # under vmap a batched column may meet an
+                        # unbatched matrix): column i selected from the
+                        # new column, the others kept.
+                        rows = np.arange(obj.type.shape[0]) == i
+                        nv = V(torch.where(smart_device(rows[:, None], self.dev), cd[..., None, :], d), obj.type)
                     if self.mask is not None:
                         nv = _masked_merge(obj, nv, self.mask, self.dev)
                     self._assign_lvalue_raw(target.obj, nv)
@@ -1269,9 +1267,11 @@ class ShaderEval:
                 out[..., : min(c, sc), : min(r, sr)] = src.data[..., : min(c, sc), : min(r, sr)]
                 return V(out, t)
             sd = smart_device(src.data, self.dev)
-            base = smart_device(out, self.dev).expand(tuple(sd.shape[:-2]) + (c, r)).clone()
-            base[..., : min(c, sc), : min(r, sr)] = sd[..., : min(c, sc), : min(r, sr)]
-            return V(base, t)
+            mc, mr = min(c, sc), min(r, sr)
+            # Out of place: the source's top-left block over the identity.
+            block = torch.nn.functional.pad(sd[..., :mc, :mr], (0, r - mr, 0, c - mc))
+            inside = (np.arange(c)[:, None] < mc) & (np.arange(r)[None, :] < mr)
+            return V(torch.where(smart_device(inside, self.dev), block, smart_device(out, self.dev)), t)
         if len(args) == c and all(a.type.is_vector for a in args):
             cols = [a.astype("float").data for a in args]
             if all(is_concrete(x) for x in cols):

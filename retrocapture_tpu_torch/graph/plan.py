@@ -37,6 +37,7 @@ are compile-time constants stay numpy.
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 from dataclasses import dataclass
 from pathlib import Path
@@ -121,6 +122,12 @@ class CompiledPass:
     # (_vertex_is_static): its varyings depend on the geometry and the
     # parameters only, so what a hand kernel derives from them may be kept.
     vertex_static: bool = False
+    # Conservative (token-level) temporal-uniform usage, detected on the
+    # preprocessed source with uniform declarations stripped: drives the
+    # fc-period batch grouping in runtime/engine. Over-approximation only
+    # disables an optimization.
+    uses_frame_count: bool = False
+    uses_time: bool = False
 
 
 @dataclass
@@ -145,6 +152,29 @@ class PresetProgram:
         return any(
             _FEEDBACK_RE.match(n) for cp in self.passes for n in cp.sampler_names
         )
+
+    def fc_period(self) -> Optional[int]:
+        """Period m such that the chain's output depends on FrameCount only
+        through FrameCount % m, or None when unbounded.
+
+        The reference hands each pass ``FrameCount % frame_count_modN``
+        (ShaderEngine.cpp:2095-2145), so when every FrameCount-reading pass
+        declares a mod, and no pass reads Time, the whole chain is periodic
+        in FrameCount with period lcm(mods); 1 means the chain never reads
+        FrameCount. The engine then batches frames in period groups with
+        one host FrameCount per group position, which keeps FrameCount-
+        dependent fields (ntsc pass 1's chroma-phase rows) the same for
+        every frame of a group."""
+        m = 1
+        for cp in self.passes:
+            if cp.uses_time:
+                return None
+            if cp.uses_frame_count:
+                mod = self.preset.passes[cp.index].frame_count_mod
+                if not mod or mod <= 0:
+                    return None
+                m = math.lcm(m, int(mod))
+        return m
 
 
 class PresetCompileError(Exception):
@@ -260,6 +290,15 @@ def compile_preset(preset: Preset) -> PresetProgram:
         n_tex = len(
             re.findall(r"\b(?:texture2D|texture|texelFetch|textureLod)\s*\(", fsrc)
         )
+        # Temporal-uniform USAGE, not declaration: every slang-era shader
+        # declares ``uniform int FrameCount;`` in its boilerplate, so the
+        # declaration lines (and layout/struct members) are stripped before
+        # the token scan, or the scan would always find it.
+        both = "\n".join(
+            ln
+            for ln in (vsrc + "\n" + fsrc).splitlines()
+            if not re.match(r"\s*(?:layout\s*\(.*\)\s*)?uniform\b", ln)
+        )
         cp = CompiledPass(
             index=i,
             vertex_eval=ShaderEval(vtu, "vertex"),
@@ -268,6 +307,8 @@ def compile_preset(preset: Preset) -> PresetProgram:
             sampler_names=tuple(samplers),
             texture_calls=n_tex,
             vertex_static=_vertex_is_static(vtu),
+            uses_frame_count=bool(re.search(r"\b(?:FrameCount|FRAMEINDEX|frame_count)\b", both)),
+            uses_time=bool(re.search(r"\b(?:TIME|Time|frame_time)\b", both)),
         )
         passes.append(cp)
         for p in fparams:

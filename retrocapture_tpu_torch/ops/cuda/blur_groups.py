@@ -244,32 +244,38 @@ def weight_tables(groups, formulation: str) -> list[np.ndarray]:
     return out
 
 
-def _f32(x) -> float:
-    return float(np.float32(x))
+def _plain(tex, u, v, params, channels):
+    """The plain version over the kernel's own group table (``_group_params``):
+    ``tex [B, H, W, C]`` f32, ``u, v [HO, WO]`` f32, ``params [G, 37]``,
+    ``channels`` each group's texture channel → ``[n channels, B, HO, WO]``
+    in sorted channel order. Per channel, the groups in list order, j then
+    i, each tap ``acc + W[j][i] * texel`` in f32 without contraction: the
+    kernel's order."""
+    b, h, w, _ = tex.shape
+    ho, wo = u.shape
+    chans = sorted(set(channels))
+    acc = {ch: torch.zeros((b, ho * wo), dtype=torch.float32, device=tex.device) for ch in chans}
+    planes = {ch: tex[..., ch].reshape(b, h * w) for ch in chans}
+    for p, ch in zip(params, channels):
+        ug = u + p[0]
+        vg = v + p[1]
+        cols = [ifloor32((ug + xo) * float(w)).clamp(0, w - 1).long() for xo in p[2:7]]
+        rows = [ifloor32((vg + yo) * float(h)).clamp(0, h - 1).long() for yo in p[7:12]]
+        plane = planes[ch]
+        a = acc[ch]
+        for j, r in enumerate(rows):
+            for i, c in enumerate(cols):
+                a = a + p[12 + 5 * j + i] * plane[:, (r * w + c).reshape(-1)]
+        acc[ch] = a
+    return torch.stack([acc[ch].reshape(b, ho, wo) for ch in chans])
 
 
 def blur5x5_groups_plain(tex, u, v, groups, tables):
     """Plain torch version: ``tex [B, H, W, C]`` f32, ``u, v [HO, WO]``
-    f32 → ``{channel: [B, HO, WO]}``. Per channel, the groups in list
-    order, j then i, each tap ``acc + W[j][i] * texel`` in f32 without
-    contraction: the kernel's order."""
-    b, h, w, _ = tex.shape
-    ho, wo = u.shape
-    chans = sorted({g.channel for g in groups})
-    acc = {ch: torch.zeros((b, ho * wo), dtype=torch.float32, device=tex.device) for ch in chans}
-    planes = {ch: tex[..., ch].reshape(b, h * w) for ch in chans}
-    for g, wt in zip(groups, tables):
-        ug = u + _f32(g.bx)
-        vg = v + _f32(g.by)
-        cols = [ifloor32((ug + _f32(xo)) * float(w)).clamp(0, w - 1).long() for xo in g.xo]
-        rows = [ifloor32((vg + _f32(yo)) * float(h)).clamp(0, h - 1).long() for yo in g.yo]
-        plane = planes[g.channel]
-        a = acc[g.channel]
-        for j, r in enumerate(rows):
-            for i, c in enumerate(cols):
-                a = a + float(wt[j, i]) * plane[:, (r * w + c).reshape(-1)]
-        acc[g.channel] = a
-    return {ch: acc[ch].reshape(b, ho, wo) for ch in chans}
+    f32 → ``{channel: [B, HO, WO]}``."""
+    params, _, chans = _group_params(groups, tables, tex.device)
+    out = _plain(tex, u, v, params, [g.channel for g in groups])
+    return {ch: out[k] for k, ch in enumerate(chans)}
 
 
 def _group_params(groups, tables, device):
@@ -285,34 +291,63 @@ def _group_params(groups, tables, device):
     return params, chan, chans
 
 
-def _launch(t4, u, v, groups, tables):
+@torch.library.custom_op("rctpu::blur_groups", mutates_args=(), device_types="cuda")
+def _blur_groups_op(tex: torch.Tensor, u: torch.Tensor, v: torch.Tensor, params: torch.Tensor, chan: torch.Tensor,
+                    channels: list[int]) -> torch.Tensor:
+    """``tex [B, H, W, C]`` f32, ``u, v [HO, WO]`` f32, the group table
+    ``params``, ``chan`` (each group's texture channel and output slot) on
+    tex's device, ``channels`` each group's texture channel → ``[n
+    channels, B, HO, WO]``: the kernel on a card."""
     from retrocapture_tpu_torch.ops.cuda._build import load
 
     global LAUNCHES
+    t4 = tex.contiguous()
+    uu, vv = u.contiguous(), v.contiguous()
     b, h, w, c = t4.shape
     ho, wo = u.shape
-    dev = t4.device
-    uu = u.to(device=dev, dtype=torch.float32).contiguous()
-    vv = v.to(device=dev, dtype=torch.float32).contiguous()
-    params, chan, chans = _group_params(groups, tables, dev)
-    if len(chans) > 4:
-        raise ValueError(f"blur5x5_groups: the kernel writes at most 4 channels, got {len(chans)}")
-    out = torch.empty((len(chans), b, ho, wo), dtype=torch.float32, device=dev)
-    if out.numel():
-        if c > 4:
-            raise ValueError(f"blur5x5_groups: the kernel takes at most 4 texture channels, got {c}")
-        wide = _WIDE.get(dev)
-        if wide is None:
-            wide = _WIDE[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
-        rc = load("blur_groups")(
-            t4.data_ptr(), uu.data_ptr(), vv.data_ptr(), params.data_ptr(), chan.data_ptr(), out.data_ptr(),
-            wide.data_ptr(), b, h, w, c, ho, wo, len(groups), len(chans),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-        if rc != 0:
-            raise RuntimeError(f"blur_groups kernel launch failed: cudaError {rc}")
-        LAUNCHES += 1
-    return {ch: out[k] for k, ch in enumerate(chans)}
+    nch = len(set(channels))
+    out = torch.empty((nch, b, ho, wo), dtype=torch.float32, device=t4.device)
+    if out.numel() == 0:
+        return out
+    wide = _WIDE.get(t4.device)
+    if wide is None:
+        wide = _WIDE[t4.device] = torch.zeros(1, dtype=torch.int32, device=t4.device)
+    rc = load("blur_groups")(
+        t4.data_ptr(), uu.data_ptr(), vv.data_ptr(), params.data_ptr(), chan.data_ptr(), out.data_ptr(),
+        wide.data_ptr(), b, h, w, c, ho, wo, len(channels), nch,
+        torch.cuda.current_stream(t4.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"blur_groups kernel launch failed: cudaError {rc}")
+    LAUNCHES += 1
+    return out
+
+
+@_blur_groups_op.register_kernel("cpu")
+def _blur_groups_cpu(tex, u, v, params, chan, channels):
+    return _plain(tex, u, v, params, channels)
+
+
+@_blur_groups_op.register_fake
+def _blur_groups_fake(tex, u, v, params, chan, channels):
+    return tex.new_empty((len(set(channels)), tex.shape[0]) + tuple(u.shape))
+
+
+@_blur_groups_op.register_vmap
+def _blur_groups_vmap(info, in_dims, tex, u, v, params, chan, channels):
+    td = in_dims[0]
+    if all(d is None for d in in_dims[1:5]):
+        # Shared coordinates and groups: the batch's textures in one launch
+        # (the reference's rule, blur_groups.py:191-215).
+        t = tex.movedim(td, 0)
+        out = _blur_groups_op(t.reshape((-1,) + tuple(t.shape[2:])), u, v, params, chan, channels)
+        return out.reshape((out.shape[0],) + tuple(t.shape[:2]) + tuple(out.shape[2:])), 1
+    args = (tex, u, v, params, chan)
+    outs = [
+        _blur_groups_op(*(x if d is None else x.select(d, i) for x, d in zip(args, in_dims)), channels)
+        for i in range(info.batch_size)
+    ]
+    return torch.stack(outs, dim=1), 1
 
 
 def wide_tiles(reset: bool = False) -> int:
@@ -334,22 +369,28 @@ def blur5x5_groups(tex, u, v, groups):
     [(B,) HO, WO] f32}`` with each group's scale folded. ``RCTPU_BLUR``
     picks the weights as the reference does: v2 (default) exact, v1
     rank-2. A CUDA tensor launches the kernel; a CPU tensor takes the
-    plain version."""
+    plain version. Both sit behind the operator ``rctpu::blur_groups``,
+    whose batching rule launches once for a batch of textures that shares
+    the coordinates and once a frame otherwise."""
     if tex.dtype != torch.float32:
         raise TypeError(f"blur5x5_groups: tex must be float32, got {tex.dtype}")
+    if tex.device.type not in ("cuda", "cpu"):
+        raise RuntimeError(f"blur5x5_groups: no kernel for device {tex.device}")
     squeeze = tex.dim() == 3
-    t4 = (tex[None] if squeeze else tex).contiguous()
+    t4 = tex[None] if squeeze else tex
     if t4.dim() != 4:
         raise ValueError(f"blur5x5_groups: tex must be [H,W,C] or [B,H,W,C], got {tuple(tex.shape)}")
     if u.shape != v.shape or u.dim() != 2:
         raise ValueError(f"blur5x5_groups: u, v must share one [HO, WO] shape, got {tuple(u.shape)}, {tuple(v.shape)}")
     if max(g.channel for g in groups) >= t4.shape[-1]:
         raise ValueError(f"blur5x5_groups: a group reads a channel beyond C={t4.shape[-1]}")
-    tables = weight_tables(groups, _formulation())
+    params, chan, chans = _group_params(groups, weight_tables(groups, _formulation()), t4.device)
     if t4.is_cuda:
-        planes = _launch(t4, u, v, groups, tables)
-    elif t4.device.type == "cpu":
-        planes = blur5x5_groups_plain(t4, u.to(torch.float32), v.to(torch.float32), groups, tables)
-    else:
-        raise RuntimeError(f"blur5x5_groups: no kernel for device {t4.device}")
-    return {ch: p[0] for ch, p in planes.items()} if squeeze else planes
+        if len(chans) > 4:
+            raise ValueError(f"blur5x5_groups: the kernel writes at most 4 channels, got {len(chans)}")
+        if t4.shape[-1] > 4:
+            raise ValueError(f"blur5x5_groups: the kernel takes at most 4 texture channels, got {t4.shape[-1]}")
+    out = _blur_groups_op(
+        t4, u.to(torch.float32), v.to(torch.float32), params, chan, [g.channel for g in groups]
+    )
+    return {ch: out[k, 0] if squeeze else out[k] for k, ch in enumerate(chans)}

@@ -44,6 +44,8 @@ plain version only for a CPU tensor. ``LAUNCHES`` counts kernel launches.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -233,26 +235,58 @@ def prepare_maps(bx, fpx, fpy, w: int, device) -> EpilogueMaps:
 _CONSTANTS = np.ascontiguousarray(np.append(_ramp_table().reshape(-1), _INV255), np.float32)
 
 
-def _launch(S, m: EpilogueMaps):
+@torch.library.custom_op("rctpu::xbr_epilogue", mutates_args=(), device_types="cuda")
+def _xbr_epilogue_op(S: torch.Tensor, bx: torch.Tensor, fpx: torch.Tensor, fpy: torch.Tensor,
+                     tile_lo: Optional[torch.Tensor], tile_n: Optional[torch.Tensor], tile_px: int, rows: int,
+                     max_n: int, general_tiles: int) -> torch.Tensor:
+    """``S [B, 19, OH, W]`` f32 and the maps of ``prepare_maps`` (its tile
+    plan on a card) → ``[B, OH, OW, 4]``: the kernel on a card."""
     from retrocapture_tpu_torch.ops.cuda._build import load
 
     global LAUNCHES, _GENERAL_BLOCKS
+    S = S.contiguous()
     b, _, oh, w = S.shape
-    ow = m.bx.shape[0]
+    ow = bx.shape[0]
     dev = S.device
     out = torch.empty((b, oh, ow, 4), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
     rc = load("xbr_epilogue")(
-        S.data_ptr(), m.bx.data_ptr(), m.fpx.data_ptr(), m.fpy.data_ptr(), m.tile_lo.data_ptr(),
-        m.tile_n.data_ptr(), _CONSTANTS.ctypes.data, out.data_ptr(),
-        b, oh, w, ow, m.tile_px, m.rows, m.max_n, torch.cuda.current_stream(dev).cuda_stream,
+        S.data_ptr(), bx.data_ptr(), fpx.data_ptr(), fpy.data_ptr(), tile_lo.data_ptr(),
+        tile_n.data_ptr(), _CONSTANTS.ctypes.data, out.data_ptr(),
+        b, oh, w, ow, tile_px, rows, max_n, torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"xbr_epilogue kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
-    _GENERAL_BLOCKS += m.general_tiles * -(-oh // m.rows) * b
+    _GENERAL_BLOCKS += general_tiles * -(-oh // rows) * b
     return out
+
+
+@_xbr_epilogue_op.register_kernel("cpu")
+def _xbr_epilogue_cpu(S, bx, fpx, fpy, tile_lo, tile_n, tile_px, rows, max_n, general_tiles):
+    return xbr_epilogue_plain(S, bx, fpx, fpy)
+
+
+@_xbr_epilogue_op.register_fake
+def _xbr_epilogue_fake(S, bx, fpx, fpy, tile_lo, tile_n, tile_px, rows, max_n, general_tiles):
+    return S.new_empty((S.shape[0], S.shape[2], bx.shape[0], 4))
+
+
+@_xbr_epilogue_op.register_vmap
+def _xbr_epilogue_vmap(info, in_dims, S, bx, fpx, fpy, tile_lo, tile_n, *plan):
+    sd = in_dims[0]
+    maps = (bx, fpx, fpy, tile_lo, tile_n)
+    if all(d is None for d in in_dims[1:6]):
+        # One geometry for the batch: its S planes in one launch.
+        t = S.movedim(sd, 0)
+        out = _xbr_epilogue_op(t.reshape((-1,) + tuple(t.shape[2:])), *maps, *plan)
+        return out.reshape(tuple(t.shape[:2]) + tuple(out.shape[1:])), 0
+    outs = [
+        _xbr_epilogue_op(*(x if d is None else x.select(d, i) for x, d in zip((S,) + maps, in_dims)), *plan)
+        for i in range(info.batch_size)
+    ]
+    return torch.stack(outs), 0
 
 
 def xbr_epilogue(S, bx, fpx=None, fpy=None):
@@ -262,7 +296,9 @@ def xbr_epilogue(S, bx, fpx=None, fpy=None):
     arrays) → ``[B, OH, OW, 4]`` f32 on S's device. ``bx`` may be the
     ``EpilogueMaps`` that ``prepare_maps`` made of the three for S's width
     and device (then ``fpx`` and ``fpy`` are left out). A CUDA tensor
-    launches the kernel; a CPU tensor takes the plain version."""
+    launches the kernel; a CPU tensor takes the plain version. Both sit
+    behind the operator ``rctpu::xbr_epilogue``, whose batching rule
+    launches once for a batch of S that shares the maps."""
     if not isinstance(S, torch.Tensor) or S.dtype != torch.float32:
         raise TypeError(f"xbr_epilogue: S must be a float32 tensor, got {getattr(S, 'dtype', type(S))}")
     if S.dim() != 4 or S.shape[1] != _NCH:
@@ -274,6 +310,6 @@ def xbr_epilogue(S, bx, fpx=None, fpy=None):
             f"xbr_epilogue: maps for width {m.w}, {m.fpy.shape[0]} rows on {m.bx.device}; "
             f"S is {tuple(S.shape)} on {S.device}"
         )
-    if S.is_cuda:
-        return _launch(S.contiguous(), m)
-    return xbr_epilogue_plain(S, m.bx, m.fpx, m.fpy)
+    return _xbr_epilogue_op(
+        S, m.bx, m.fpx, m.fpy, m.tile_lo, m.tile_n, m.tile_px, m.rows, m.max_n, m.general_tiles
+    )

@@ -52,7 +52,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["apply_policy", "to_device", "upload", "WalkProgram", "walking", "walk_program", "unrecorded", "ifloor32", "fma32", "fmaf32", "sinf32", "logf32", "log2f32", "expf32", "INT32_MIN"]
+__all__ = ["apply_policy", "to_device", "upload", "bitcast", "WalkProgram", "walking", "walk_program", "unrecorded", "ifloor32", "fma32", "fmaf32", "sinf32", "logf32", "log2f32", "expf32", "INT32_MIN"]
 
 INT32_MIN = -2147483648
 
@@ -255,11 +255,11 @@ def fmaf32(a, b, c) -> torch.Tensor:
     s = p + c
     bb = s - p
     err = (p - (s - bb)) + (c - bb)
-    bits = s.contiguous().view(torch.int64)
+    bits = bitcast(s.contiguous(), torch.int64)
     # A non-finite sum has a NaN error and stays as it is.
     nudge = torch.isfinite(err) & (err != 0) & ((bits & 1) == 0)
     step = torch.where((err > 0) == (s > 0), 1, -1)  # +1 grows the magnitude
-    return torch.where(nudge, bits + step, bits).view(torch.float64).to(torch.float32)
+    return bitcast(torch.where(nudge, bits + step, bits), torch.float64).to(torch.float32)
 
 
 # glibc's sinf (sysdeps/ieee754/flt-32/s_sinf.c, sincosf.h): constants of
@@ -283,7 +283,7 @@ def _reduce_large(x: torch.Tensor):
     """glibc's ``reduce_large``: |x| times 4/pi in 96-bit fixed point,
     from the float's own bits. uint64 arithmetic wraps; int64 wraps the
     same way, and the two logical right shifts are masked."""
-    xi = x.abs().view(torch.int32).to(torch.int64)
+    xi = bitcast(x.abs(), torch.int32).to(torch.int64)
     table = upload(torch.tensor(_INV_PIO4, dtype=torch.int64), x.device)
     idx = (xi >> 26) & 15
     m = (((xi & 0xFFFFFF) | 0x800000) << ((xi >> 23) & 7)) & _M32
@@ -297,6 +297,28 @@ def _reduce_large(x: torch.Tensor):
     return res0.to(torch.float64) * _PI63, n
 
 
+def bitcast(x: torch.Tensor, dtype) -> torch.Tensor:
+    """``x.view(dtype)`` for a dtype of the same element size: the bits
+    read as another type. Under ``torch.func.vmap`` (where some torch
+    versions have no batching rule for it) the whole batch's tensor is
+    viewed and the batch dimension put back: the view keeps its shape and
+    strides."""
+    func = torch._C._functorch
+    if func.is_batchedtensor(x):
+        inner = bitcast(func.get_unwrapped(x), dtype)
+        return func._add_batch_dim(inner, func.maybe_get_bdim(x), func.maybe_get_level(x))
+    return x.view(dtype)
+
+
+def _whole_batch(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or under ``torch.func.vmap`` the tensor of the whole batch
+    that ``x`` is one frame of: a check of every frame's values, where a
+    host read of one frame's is refused."""
+    while torch._C._functorch.is_batchedtensor(x):
+        x = torch._C._functorch.get_unwrapped(x)
+    return x
+
+
 def sinf32(x: torch.Tensor, *, below_120: bool = False) -> torch.Tensor:
     """``sinf`` of an f32 tensor as glibc computes it (what a jitted XLA
     CPU fusion calls): quadrant reduction and a degree-7 sine or degree-8
@@ -306,7 +328,7 @@ def sinf32(x: torch.Tensor, *, below_120: bool = False) -> torch.Tensor:
     (through the polynomials in the bounded form: inf - inf). The bound is
     the caller's promise: it is checked where the check costs no device
     synchronisation, on a CPU tensor, and raises ``ValueError`` there."""
-    if below_120 and x.device.type == "cpu" and bool((x.abs() >= 120.0).any()):
+    if below_120 and x.device.type == "cpu" and bool((_whole_batch(x).abs() >= 120.0).any()):
         raise ValueError("sinf32(below_120=True): an argument of magnitude 120 or above")
     xd = x.to(torch.float64)
     # n = round(x * 2/pi) through 2^24 fixed point; xr = x - n * pi/2.
@@ -376,9 +398,9 @@ def logf32(x: torch.Tensor) -> torch.Tensor:
     inf, NaN and negative input give NaN."""
     x = x.to(torch.float32)
     xc = torch.where(x > _FLT_MIN, x, _FLT_MIN)  # subnormals, 0 and NaN: the smallest normal
-    bits = xc.view(torch.int32)
+    bits = bitcast(xc, torch.int32)
     e = ((bits >> 23) - 127).to(torch.float32) + 1.0
-    m = ((bits & -2139095041) | 0x3F000000).view(torch.float32)  # exponent of 0.5: m in [0.5, 1)
+    m = bitcast((bits & -2139095041) | 0x3F000000, torch.float32)  # exponent of 0.5: m in [0.5, 1)
     small = m < _SQRTHF
     xm = (m - 1.0) + torch.where(small, m, 0.0)
     e = e - torch.where(small, 1.0, 0.0)
@@ -417,5 +439,5 @@ def expf32(x: torch.Tensor) -> torch.Tensor:
     p = fma32(fma32(fma32(fma32(fma32(r, c0, c1), r, c2), r, c3), r, c4), r, 0.5)
     y = fma32(p, r * r, r) + 1.0
     n = torch.nan_to_num(fx).to(torch.int32)
-    out = y * ((n + 127) << 23).view(torch.float32)
+    out = y * bitcast((n + 127) << 23, torch.float32)
     return torch.where(out < _FLT_MIN, 0.0, out)  # a subnormal result flushes to zero, as there

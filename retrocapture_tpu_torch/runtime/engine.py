@@ -14,23 +14,35 @@ Execution model:
   scalars. Runtime parameters are constants of the evaluation (const
   mode) or, after ``set_param_mode("traced")``, f32 device buffers, one per
   parameter, that ``set_parameter`` writes (the reference's traced mode).
-* Per key (source and viewport size, input quantization, parameter mode)
-  the engine keeps a program (runtime/replay.py): the first walk records
-  its uploads and every later walk takes them back; on a card the chain of
-  one frame is captured into a CUDA graph after the first walk and
-  replayed for every later frame; without a graph (the CPU,
-  ``RCTPU_REPLAY=0``) the same frame runs again over the same buffers.
-* Temporal state (7-deep history ring of final outputs —
-  ShaderEngine.cpp:1731-1865 — and PassFeedback ping-pong :1280-1347)
-  is an explicit ``_ChainState`` carried frame by frame; stateless
-  presets evaluate each frame of a batch from the same state.
+* A batch takes one of four branches, in the reference's order
+  (its ``Engine._get_jit``):
+  1. concrete FrameCount (``RCTPU_CONCRETE_FC=1``, the parity harnesses'
+     mode): frame by frame, FrameCount and Time handed to the evaluator as
+     numpy scalars, so that time-dependent math folds through its exact
+     numpy path;
+  2. fc-period grouped (a stateless chain whose every FrameCount reader
+     declares a ``frame_count_mod``, ``PresetProgram.fc_period``; off under
+     ``RCTPU_FC_GROUP=0``): the batch in m positions of B/m frames, each
+     with one host FrameCount;
+  3. temporal (a 7-deep history ring of final outputs —
+     ShaderEngine.cpp:1731-1865 — or PassFeedback ping-pong :1280-1347):
+     frame by frame, an explicit ``_ChainState`` carried;
+  4. stateless: the whole batch in one walk, ``torch.func.vmap`` of the
+     frame's chain, frame i with FrameCount fc + i and Time time + 0.016 i.
+* Per key (source and viewport size, input quantization, parameter mode;
+  for a stateless chain also the batch size and the grouping) the engine
+  keeps a program (runtime/replay.py): the first walk records its uploads
+  and every later walk takes them back; on a card the walk is captured
+  into a CUDA graph after the first walk (one frame's step of a temporal
+  chain, replayed per frame; a stateless chain's whole batch, replayed
+  once an apply); without a graph (the CPU, ``RCTPU_REPLAY=0``) the same
+  walk runs again over the same buffers.
 * The viewport blit is stateless and runs once per batch, batched, after
   the chain (the CUDA blit kernel for ``output="u8"``).
 * ``apply_streams`` keeps one chain state per stream, stacked along a
-  leading stream axis, and runs the streams one after another.
-* ``RCTPU_CONCRETE_FC=1`` (the parity harnesses' mode) hands FrameCount
-  and Time to the evaluator as numpy scalars, so that time-dependent
-  math folds through its exact numpy path.
+  leading stream axis: a temporal chain's step runs every stream's frame
+  at once (vmap over the streams), a stateless chain runs all S·T frames
+  as one batch.
 
 The engine runs on the card (``device="cuda"``, the default) unless the
 caller names another device, and raises rather than fall back to the CPU
@@ -90,6 +102,12 @@ def _replay_on() -> bool:
     return os.environ.get("RCTPU_REPLAY", "1") != "0"
 
 
+def _fc_group_on() -> bool:
+    """``RCTPU_FC_GROUP=0`` turns fc-period grouping off (bit-identical;
+    for A/B runs); read at every apply."""
+    return os.environ.get("RCTPU_FC_GROUP", "1") != "0"
+
+
 def _grids(w: int, h: int) -> tuple[np.ndarray, np.ndarray]:
     """Concrete (NumPy) pixel-center coordinate grids [h, w]."""
     u = (np.arange(w, dtype=np.float32) + 0.5) / np.float32(w)
@@ -137,6 +155,10 @@ class Engine:
         self._custom_params: dict[str, float] = {}
         self._viewport = viewport  # (W, H) or None → source size
         self._states: dict = {}
+        # Host mirror of each state's frame count (it advances by the batch
+        # size an apply), so that fc-period grouping knows FrameCount % m
+        # with no read of the device.
+        self._fc_hosts: dict = {}
         self._max_resolution: Optional[tuple[int, int]] = None
         self._input_format = "rgb"  # rgb | nv12 | yuyv | uyvy
         self._lowering_failed = False
@@ -154,6 +176,7 @@ class Engine:
         Returns False and degrades to passthrough on failure, keeping any
         extracted parameters (reference behavior, ShaderEngine.cpp:294)."""
         self._states.clear()
+        self._fc_hosts.clear()
         self._custom_params.clear()
         self._lowering_failed = False
         self._param_const_fallback = False
@@ -181,6 +204,7 @@ class Engine:
         self._preset = None
         self.shader_active = False
         self._states.clear()
+        self._fc_hosts.clear()
         self._param_bufs.clear()
         self._drop_programs()
 
@@ -326,10 +350,12 @@ class Engine:
         applied at :1621-1657). 0 disables."""
         self._max_resolution = (int(width), int(height))
         self._states.clear()
+        self._fc_hosts.clear()
         self._drop_programs()
 
     def reset_state(self) -> None:
         self._states.clear()
+        self._fc_hosts.clear()
 
     # -- state checkpoint/restore ----------------------------------------
     def save_state(self, path: str) -> None:
@@ -359,7 +385,11 @@ class Engine:
         data = np.load(_npz_path(path))
         meta = json.loads(bytes(data["__meta__"]).decode())
         self._states.clear()
+        self._fc_hosts.clear()
         for ki, m in enumerate(meta):
+            fc = np.asarray(data[f"s{ki}_fc"])
+            if fc.ndim == 0:  # a stream state's is per stream, and never grouped
+                self._fc_hosts[tuple(m["key"])] = int(fc)
             self._states[tuple(m["key"])] = chain_state_from_numpy(
                 [data[f"s{ki}_h{j}"] for j in range(m["n_history"])],
                 {j: data[f"s{ki}_f{j}"] for j in m["feedback_keys"]},
@@ -375,8 +405,8 @@ class Engine:
         the viewport size on the engine's device: float32 in [0,1]
         (default) or, with ``output="u8"``, uint8 from the fused blit
         kernel. Batches of temporal presets run frame by frame with the
-        state carried; stateless presets evaluate every frame from the
-        same state."""
+        state carried; stateless presets run the whole batch at once, every
+        frame from the same state."""
         if output not in ("f32", "u8"):
             raise ValueError(f"unknown output {output!r}")
         arr = self._upload(frames)
@@ -407,7 +437,7 @@ class Engine:
             self._lowering_failure(e)
             out = self._passthrough_out(arr, packed, vw, vh, output)
             return out if batched else out[0]
-        self._states[key] = new_state
+        self._commit(key, new_state, arr.shape[0])
         # Outside the try: an error of the blit is no lowering failure.
         out = _finalize(out, vw, vh, output == "u8")
         return out if batched else out[0]
@@ -418,7 +448,10 @@ class Engine:
         state is kept per stream, stacked along a leading stream axis
         under the key ``(h, w, vw, vh, S, "const")`` (the layout of the
         JAX package's checkpoints), so stream ``s`` renders what an
-        engine of its own would, fed that stream alone."""
+        engine of its own would, fed that stream alone. A temporal chain
+        steps every stream's frame t at once (the reference's vmap over
+        streams of its scan); a stateless chain runs the S·T frames as one
+        batch, each stream from its own FrameCount."""
         arr = self._upload(frames)
         if arr.dim() != 5:
             raise ValueError(f"apply_streams expects [S, T, H, W, C], got {tuple(arr.shape)}")
@@ -430,12 +463,6 @@ class Engine:
             out = self._passthrough(flat, vw, vh)[..., :3]
             return out.reshape((s, t) + tuple(out.shape[1:]))
 
-        single = self._states.get((h, w, vw, vh))
-        if single is not None:
-            # The streams run through the program of the single-stream key,
-            # whose buffers may hold that key's own state: a copy of it
-            # stands in, for apply and as the streams' first state.
-            self._states[(h, w, vw, vh)] = _map_state(single, torch.clone)
         key = (h, w, vw, vh, s, self._effective_param_mode())
         state = self._states.get(key)
         if state is None:
@@ -452,23 +479,15 @@ class Engine:
                 )
             self._states[key] = state
         try:
-            outs, news = [], []
-            for i in range(s):
-                out, new = self._run_batch((h, w, vw, vh), arr[i], _map_state(state, lambda x: x[i]))
-                outs.append(out)
-                news.append(_map_state(new, torch.clone))
+            out, new = self._run_batch((h, w, vw, vh), arr.reshape((s * t,) + tuple(arr.shape[2:])), state, streams=s)
         except _LOWERING_ERRORS as e:
             if self._traced_fallback(e):
                 return self.apply_streams(arr)
             self._lowering_failure(e)
             return self.apply_streams(arr)
-        self._states[key] = _ChainState(
-            history=tuple(torch.stack(hs) for hs in zip(*(n.history for n in news))),
-            feedback={j: torch.stack([n.feedback[j] for n in news]) for j in news[0].feedback},
-            frame_count=torch.stack([n.frame_count for n in news]),
-            time=torch.stack([n.time for n in news]),
-        )
-        return torch.stack([_finalize(o, vw, vh, False) for o in outs])
+        self._states[key] = new
+        out = _finalize(out, vw, vh, False)
+        return out.reshape((s, t) + tuple(out.shape[1:]))
 
     # convenience mirror of the reference's RGB24 readback output
     def apply_u8(self, frames) -> np.ndarray:
@@ -493,7 +512,7 @@ class Engine:
             out, new_state = self._run_batch(key, arr, state)
         except _LOWERING_ERRORS:
             return _quantize_u8(self.apply(frames)).cpu().numpy()
-        self._states[key] = new_state
+        self._commit(key, new_state, arr.shape[0])
         out = _finalize(out, vw, vh, True).cpu().numpy()
         return out if batched else out[0]
 
@@ -518,6 +537,7 @@ class Engine:
         self.shader_active = False
         self._lowering_failed = True
         self._states.clear()
+        self._fc_hosts.clear()
         self._drop_programs()
 
     def _upload(self, frames) -> torch.Tensor:
@@ -601,7 +621,30 @@ class Engine:
             time=torch.zeros((), dtype=torch.float32, device=dev),
         )
         self._states[key] = st
+        self._fc_hosts[key] = 0
         return st
+
+    def _commit(self, key, state: _ChainState, nb: int) -> None:
+        """Keep the state an apply of ``nb`` frames left under ``key``, its
+        frame count's host mirror advanced."""
+        self._states[key] = state
+        if key in self._fc_hosts:
+            self._fc_hosts[key] += nb
+
+    def _fc_group(self, key, nb: int, temporal: bool, fc_static) -> Optional[tuple[int, int]]:
+        """``(m, FrameCount % m)`` where a batch takes the fc-period grouped
+        branch (the reference's engine.py:370-392), else None: grouping on,
+        FrameCount not concrete, a stateless chain, more than one frame, a
+        period 2 <= m <= 8 that divides the batch, and the key's frame count
+        known on the host. A period of 1 (the chain never reads FrameCount)
+        would only add interleave copies."""
+        if not _fc_group_on() or fc_static is not None or temporal or nb <= 1:
+            return None
+        m = self._program.fc_period()
+        r0 = self._fc_hosts.get(key)
+        if m is None or not 2 <= m <= 8 or nb % m or r0 is None:
+            return None
+        return m, r0 % m
 
     def _clamped_source(self, w: int, h: int) -> tuple[int, int]:
         """Max-resolution clamp preserving aspect, even dims
@@ -621,13 +664,15 @@ class Engine:
             pw = int(round(mh * aspect))
         return max((pw // 2) * 2, 2), max((ph // 2) * 2, 2)
 
-    def _run_batch(self, key, raw_b, state: _ChainState, fc_static: Optional[int] = None):
+    def _run_batch(self, key, raw_b, state: _ChainState, fc_static: Optional[int] = None,
+                   streams: Optional[int] = None):
         """Normalize the batch and run the chain over every frame; the
         caller blits (``_finalize``). Returns the last pass's RGB frames
-        ``[B, h, w, 3]`` and the new state: but in concrete-FrameCount
-        mode, the state the program's buffers hold. ``fc_static`` is the
-        state's frame count as a host integer in concrete-FrameCount mode,
-        else None."""
+        ``[B, h, w, 3]`` and the new state (a temporal chain's is the
+        state its program's buffers hold). ``fc_static`` is the state's
+        frame count as a host integer in concrete-FrameCount mode, else
+        None. ``streams``: the batch is S streams of T frames, stream after
+        stream, and ``state`` holds one state per stream (apply_streams)."""
         h, w, vw, vh = key
         prog = self._program
         pw, ph = self._clamped_source(w, h)
@@ -677,15 +722,30 @@ class Engine:
             )
             return torch.stack(outs)[..., :3], new_state
 
+        out_shape = (shapes[-1].out_h, shapes[-1].out_w, 3)
+        fc_group = None if streams else self._fc_group(key, nb, temporal, fc_static)
         pkey = (h, w, vw, vh, src_quant, self._effective_param_mode())
+        if streams:
+            pkey += ("streams", streams)
+        if not temporal:
+            pkey += (nb, fc_group)
         program = self._programs.get(pkey)
         if program is None:
             program = self._programs[pkey] = replay.ChainProgram()
-        out_shape = (shapes[-1].out_h, shapes[-1].out_w, 3)
-        return replay.run_captured(
-            program, single, src_b, state, out_shape, temporal, _ChainState, self._stats,
-            graph=card and _replay_on(),
+        walk_fn = single
+        if streams and temporal:
+            # One step of every stream at once: frame t of the S streams,
+            # each with its own state.
+            walk_fn = torch.func.vmap(single)
+            src_b = src_b.reshape((streams, nb // streams) + tuple(src_b.shape[1:])).transpose(0, 1)
+            out_shape = (streams,) + out_shape
+        out, new_state = replay.run_captured(
+            program, walk_fn, src_b, state, out_shape, temporal, _ChainState, self._stats,
+            graph=card and _replay_on(), fc_group=fc_group,
         )
+        if streams and temporal:
+            out = out.transpose(0, 1).reshape((nb,) + tuple(out.shape[2:]))
+        return out, new_state
 
 
 def _map_state(state: _ChainState, fn) -> _ChainState:

@@ -8,7 +8,11 @@ an integer x ratio at the source height) and FrameCount; pass 2 reads the
 pass config (an x ratio of 1/2) and the source height. So passthrough
 shaders under the registry's basenames, in a preset of ntsc-320px's form
 (bench.py:47; tests/test_kernels_ntsc.py:84-101 writes it at 256 wide),
-drive the full ntsc computation in both engines.
+drive the full ntsc computation in both engines. The pass 1 stand-ins read
+FrameCount, as the real pass 1 does (its chroma phase), in a product that
+leaves the passthrough exact: both engines' usage scans then give the
+chain the real one's FrameCount period of 2, which the fc-period grouped
+batch branch needs.
 """
 
 import os
@@ -79,10 +83,21 @@ float_framebuffer0 = {float_fb}
 """
 
 
+# x * (float(FrameCount) * 0.0 + 1.0) is x, bit for bit.
+PASS1_GLSL = PASSTHROUGH_GLSL.replace(
+    "uniform sampler2D Texture;\n",
+    "uniform sampler2D Texture;\nuniform int FrameCount;\n",
+).replace(
+    "gl_FragColor = texture2D(Texture, vTexCoord);",
+    "gl_FragColor = texture2D(Texture, vTexCoord) * (float(FrameCount) * 0.0 + 1.0);",
+)
+
+
 def _write_shaders(directory):
-    for name in list(PASS1.values()) + list(PASS2.values()):
-        with open(os.path.join(directory, name), "w") as f:
-            f.write(PASSTHROUGH_GLSL)
+    for names, text in ((PASS1, PASS1_GLSL), (PASS2, PASSTHROUGH_GLSL)):
+        for name in names.values():
+            with open(os.path.join(directory, name), "w") as f:
+                f.write(text)
 
 
 def _preset(directory, name, text):

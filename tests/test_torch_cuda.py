@@ -198,7 +198,7 @@ def test_xbr_slice_cuda_matches_cpu(cuda_device, tmp_path):
         before = xe.LAUNCHES
         outs.append(e.apply(torch.from_numpy(frames).to(dev), output="u8").cpu())
         assert e.shader_active is True and e.last_error is None
-        assert xe.LAUNCHES == before + (2 if dev != "cpu" else 0)
+        assert xe.LAUNCHES == before + (2 if dev != "cpu" else 0)  # the batch walked, then captured
     assert torch.equal(outs[0], outs[1])
 
 
@@ -213,7 +213,7 @@ def test_mattias_slice_cuda_matches_cpu(cuda_device, tmp_path):
         outs.append(e.apply(torch.from_numpy(frames).to(dev), output="u8").cpu())
         assert e.shader_active is True and e.last_error is None
         if dev != "cpu":
-            assert bg.LAUNCHES == before + 2
+            assert bg.LAUNCHES == before + 2  # the batch walked, then captured
     d = (outs[0].int() - outs[1].int()).abs()
     assert int(d.max()) <= 1 and float((d != 0).float().mean()) <= 1e-3
 
@@ -646,7 +646,9 @@ def test_warped_mip_launches_once_per_level(cuda_device, tmp_path):
     assert e.load_preset(warp)
     before = ws.LAUNCHES
     out = e.apply(frames, output="u8")
-    assert ws.LAUNCHES - before == 2 * 6  # levels of 48x64: 48, 24, 12, 6, 3, 1 rows
+    # The batch walked, then captured: a launch a level each time (levels
+    # of 48x64: 48, 24, 12, 6, 3, 1 rows).
+    assert ws.LAUNCHES - before == 2 * 6
     ec = torch_pkg.Engine(viewport=(160, 120), device="cpu")
     assert ec.load_preset(warp)
     d = (out.cpu().to(torch.int32) - ec.apply(frames, output="u8").to(torch.int32)).abs()
@@ -818,10 +820,11 @@ def test_capture_meets_an_unrecorded_upload_and_raises(cuda_device, tmp_path, mo
 
 
 def test_replay_counts_the_graphs_launches(cuda_device, tmp_path):
-    """The wrappers count their launch calls, a walked frame's and a
-    capture's, and a graph's replay adds none; the device runs the epilogue
-    kernel once a frame, captured or not (its executions in torch.profiler's
-    CUDA activity)."""
+    """The wrappers count their launch calls, a walk's and a capture's, and
+    a graph's replay adds none; the device runs the epilogue kernel once an
+    apply of the stateless chain, for the whole batch, captured or not (its
+    executions in torch.profiler's CUDA activity), and the batch's graph
+    replays once an apply."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -831,7 +834,7 @@ def test_replay_counts_the_graphs_launches(cuda_device, tmp_path):
     before = xe.LAUNCHES
     e.apply(_replay_frames(fmt, 4, 3))
     torch.cuda.synchronize()
-    assert xe.LAUNCHES - before == 2  # frame 0 walked, then captured
+    assert xe.LAUNCHES - before == 2  # the batch walked, then captured
     before = xe.LAUNCHES
     frames = _replay_frames(fmt, 4, 4)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -840,5 +843,31 @@ def test_replay_counts_the_graphs_launches(cuda_device, tmp_path):
         torch.cuda._sleep(1_000_000)  # a last record stands in for any the stop loses
         torch.cuda.synchronize()
     ran = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA and "xbr_epilogue_kernel" in ev.name]
-    assert xe.LAUNCHES == before and len(ran) == 4
-    assert e.replay_stats()["replays"] == 7
+    assert xe.LAUNCHES == before and len(ran) == 1
+    assert e.replay_stats()["replays"] == 1
+
+
+def test_batched_launches_equal_single_launches(cuda_device):
+    """Each kernel's batching rule on the card: under torch.func.vmap a
+    batch of textures with shared coordinates is one launch, and each
+    frame gets the bits of that frame's own launch."""
+    rng = np.random.default_rng(95)
+    tex = torch.from_numpy(rng.random((4, 60, 80, 3), np.float32)).to(cuda_device)
+    u = torch.from_numpy(rng.random((90, 120), np.float32) * 1.2 - 0.1).to(cuda_device)
+    v = torch.from_numpy(rng.random((90, 120), np.float32) * 1.2 - 0.1).to(cuda_device)
+    groups = mattias_groups(120, 90)
+    bu, bv = mattias_uv(120, 90, 0.5, cuda_device, cross=True)
+    S, bx, fpx, fpy = _xbr_inputs(4, 80, 240, 90, 96)
+    maps = xe.prepare_maps(bx, fpx, fpy, 80, cuda_device)
+    cases = [
+        (ws, lambda t: ws.warp_sample(t, u, v, filter_linear=True), tex),
+        (bg, lambda t: torch.stack([p for _, p in sorted(bg.blur5x5_groups(t, bu, bv, groups).items())]), tex),
+        (xe, lambda s: xe.xbr_epilogue(s[None], maps)[0], S.to(cuda_device)),
+    ]
+    for module, fn, batch in cases:
+        before = module.LAUNCHES
+        got = torch.func.vmap(fn)(batch)
+        assert module.LAUNCHES == before + 1, module.__name__
+        want = torch.stack([fn(x) for x in batch])
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), module.__name__

@@ -204,7 +204,7 @@ def test_pass2_within_the_band_product_budget(tmp, monkeypatch, kind, h, vh):
     path = write_pass2(tmp, kind, float_framebuffer=True)
     frames = (np.random.default_rng(4).random((2, h, 64, 3), f32) * 1.2 - 0.1).astype(f32)
     got, want, jcalls, tcalls = _both(path, (32, vh), [frames], "f32", monkeypatch)
-    assert jcalls and all(jcalls) and tcalls == [True, True]
+    assert jcalls and all(jcalls) and tcalls == [True]  # one walk of the batch
     np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
     fin = ~np.isnan(want)
     assert np.abs(got[fin].astype(np.float64) - want[fin]).max() <= 1e-5
@@ -273,7 +273,10 @@ def test_declined_preset_renders_as_with_kernels_off(tmp, monkeypatch, case):
     path, viewport = DECLINES[case](tmp)
     frames = _u8_frames(7, 2)
     got, calls = _run(torch_pkg, path, viewport, [frames], "u8", monkeypatch)
-    assert calls == [False, False]
+    # One walk of the batch; a pass 1 with FrameCount mod 2 walks each
+    # parity of the batch (fc-period grouping).
+    grouped = case.startswith("pass1") and case != "pass1-no-frame-count-mod"
+    assert calls == [False] * (2 if grouped else 1)
     monkeypatch.setenv("RCTPU_KERNELS", "off")
     e = torch_pkg.Engine(viewport=viewport, device="cpu")
     assert e.load_preset(path)

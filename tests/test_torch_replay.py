@@ -298,7 +298,10 @@ def test_replayed_walks_of_the_slice_do_no_host_work():
                 # The walks alone: the blit runs outside a captured frame.
                 te._run_batch(SRC_HW + viewport, frames, te._states[SRC_HW + viewport])
             assert not sync.hits, f"{name}: " + "\n".join(f"{f} x{n}\n{s}" for (f, s), n in sync.hits.items())
-            assert program.walk.recorded and program.walk.uploads_replayed == replayed + 2 * len(program.walk.tensors), name
+            # A temporal chain walks each frame; a stateless one walks the
+            # batch once.
+            walks = 2 if name.startswith("feedback") else 1
+            assert program.walk.recorded and program.walk.uploads_replayed == replayed + walks * len(program.walk.tensors), name
             assert te._effective_param_mode() == ("traced" if param else "const"), name
 
 
@@ -362,12 +365,13 @@ def _write(td, name, glsl):
     return path
 
 
-def _plain_run(prog, walk_fn, src_b, state, out_shape, temporal, make_state, stats, graph):
+def _plain_run(prog, walk_fn, src_b, state, out_shape, temporal, make_state, stats, graph, fc_group=None):
     """``replay.run_captured`` as a plain walk: each frame's chain with the
-    state threaded through it, no program and no fixed buffers (the
-    reference's frame loop, engine.py:838-864: FrameCount and Time advance
-    per frame in a temporal chain, fc+i and Time + 0.016 i in a stateless
-    one)."""
+    state threaded through it, one frame at a time, no program, no fixed
+    buffers and no vmap (the reference's frame loop, engine.py:838-864:
+    FrameCount and Time advance per frame in a temporal chain, fc+i and
+    Time + 0.016 i in a stateless one, per stream for S streams; grouped,
+    frame i sees the host FrameCount (r0 + i) % m and Time 0)."""
     dt = np.float32(0.016)
     nb = src_b.shape[0]
     hist, fb, fc, tm = state.history, state.feedback, state.frame_count, state.time
@@ -378,11 +382,17 @@ def _plain_run(prog, walk_fn, src_b, state, out_shape, temporal, make_state, sta
             outs.append(out)
             fc, tm = fc + 1, tm + dt
     else:
-        fcs = fc + torch.arange(nb, dtype=torch.int32)
-        tms = tm + dt * torch.arange(nb, dtype=torch.float32)
+        n = nb // fc.numel()
+        fcs = (fc[..., None] + torch.arange(n, dtype=torch.int32)).reshape(-1)
+        tms = (tm[..., None] + dt * torch.arange(n, dtype=torch.float32)).reshape(-1)
         for i in range(nb):
-            outs.append(walk_fn(src_b[i], hist, fb, fcs[i], tms[i])[0])
-        fc, tm = fc + nb, tm + dt * np.float32(nb)
+            if fc_group is None:
+                f, t = fcs[i], tms[i]
+            else:
+                m, r0 = fc_group
+                f, t = np.int32((r0 + i) % m), np.float32(0.0)
+            outs.append(walk_fn(src_b[i], hist, fb, f, t)[0])
+        fc, tm = fc + n, tm + dt * np.float32(n)
     return torch.stack(outs), make_state(hist, fb, fc, tm)
 
 

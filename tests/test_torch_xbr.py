@@ -51,6 +51,7 @@ from _xbr_standin import write_standin
 from retrocapture_tpu.graph import kernels as jk
 from retrocapture_tpu.ops.pallas import xbr_epilogue as jxe
 from retrocapture_tpu_torch.graph import kernels as tk
+from retrocapture_tpu_torch import policy
 from retrocapture_tpu_torch.ops.cuda import xbr_epilogue as xe
 from retrocapture_tpu_torch.policy import fma32
 
@@ -239,7 +240,10 @@ def test_front_section_S_equals_reference(standin, monkeypatch, dtype, small):
         return orig_j(S, bx, fpx, fpy, interpret=interpret)
 
     def tspy(S, *maps):
-        tS.append(S[0].numpy().copy())
+        # The stateless walk is vmapped over the batch: S is one frame of
+        # the whole batch's tensor.
+        whole = policy._whole_batch(S)
+        tS.append(whole.reshape((-1,) + tuple(S.shape[1:]))[0].numpy().copy())
         return orig_t(S, *maps)
 
     monkeypatch.setattr(jxe, "xbr_epilogue", jspy)
@@ -280,7 +284,8 @@ def test_slice_matches_jax_engine(standin, monkeypatch, output, batch, small):
     want, jcalls = _jax_run(standin[0], VIEWPORT, frames, output, small, monkeypatch)
     got, tcalls = _port_run(standin[0], VIEWPORT, frames, output, small, monkeypatch)
     assert jcalls and all(jcalls), "the reference's xbr-lv2 kernel did not engage"
-    assert len(tcalls) == batch and all(tcalls), "the port's xbr-lv2 kernel did not engage"
+    # One walk of the whole batch (the stateless branch).
+    assert len(tcalls) == 1 and all(tcalls), "the port's xbr-lv2 kernel did not engage"
     assert got.shape == (batch, VIEWPORT[1], VIEWPORT[0], 3)
     _close(want, got, output)
     # Not the passthrough: xbr blends the NEAREST upscale at edges.
@@ -296,7 +301,7 @@ def test_filter_linear_preset_declined_by_both(standin, monkeypatch):
     want, jcalls = _jax_run(standin[1], VIEWPORT, frames, "u8", 0.0, monkeypatch)
     got, tcalls = _port_run(standin[1], VIEWPORT, frames, "u8", 0.0, monkeypatch)
     assert jcalls and not any(jcalls)
-    assert tcalls == [False, False]
+    assert tcalls == [False]  # one walk of the batch
     _close(want, got, "u8")
 
 
@@ -402,13 +407,13 @@ def test_vertex_stage_reading_frame_count_is_not_cached(standin, monkeypatch, tm
     plain = _port_engine(standin[0], VIEWPORT)
     plain._program.passes[0].vertex_static = False
     np.testing.assert_array_equal(_apply(plain, frames), cached)
-    assert len(builds) == 1 + 3 and _kept(plain) == {}
+    assert len(builds) == 1 + 1 and _kept(plain) == {}  # one walk of the 3 frames
 
     path = write_standin(str(tmp_path), reads_frame_count=True)
     moving = _port_engine(path, VIEWPORT)
     assert moving._program.passes[0].vertex_static is False
     got = _apply(moving, frames)
-    assert len(builds) == 4 + 3  # derived for each frame
+    assert len(builds) == 2 + 1  # derived for each walk
     assert _kept(moving) == {}
     want, jcalls = _jax_run(path, VIEWPORT, frames, "u8", 0.0, monkeypatch)
     assert jcalls and not any(jcalls)
