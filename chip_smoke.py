@@ -22,12 +22,16 @@ kernels launched once for the batch) and the command line with
 stateless path's replayed batch against the CPU port, fc-period grouping
 against ``RCTPU_FC_GROUP=0``, ``apply_streams`` against engines of their
 own, each batched kernel launch against its plain version on its own
-inputs),
+inputs), then the numerics mirrors' kernel (phase 26: every f32 bit pattern
+of sin, log, log2 and exp and a sample of each pow against the plain
+versions, and its main-path calls timed; from phase 5 to 25 no plain mirror
+may run on the card),
 compares them with the port's own CPU run, counts the work that left
 shared memory for global (the blur kernel's wide tiles, the blit's and the
-xbr epilogue's general-path units: none may at the main paths'
-geometries), and times the kernels (device time per launch from CUDA events
-around it, and per call through the wrapper) against their plain versions
+xbr epilogue's general-path units, the warp kernel's channel-at-a-time
+launches: none may at the main paths' geometries), and times the kernels
+(device time per launch from CUDA events around it, and per call through
+the wrapper) against their plain versions
 (device time from torch.profiler),
 one PyTorch library call computing the same function where there is one,
 and their bound on the card; and the slices. Prints one line per phase,
@@ -79,6 +83,18 @@ DEV = "cuda"  # the card; the checks below never fall back to the CPU
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 PEAK_F64_MATMUL_S = 67e12  # FP64 on the tensor cores (the data sheet); what an f64 matmul runs on
+PEAK_F64_S = 34e12  # FP64 outside the tensor cores (the data sheet); what elementwise f64 runs on
+
+# Phase 26, the numerics mirrors' kernel: every f32 bit pattern in chunks
+# for sin, log, log2 and exp, a random sample for the pow at each exponent
+# the port uses (crt-mattias's four, the ntsc gammas); the f64 operations
+# an element takes (dmul/dadd/dsub; sin: the least a non-tiny argument
+# takes, 11 of 11-15), for the bound.
+SWEEP_CHUNK = 1 << 27
+POW_SAMPLE = 1 << 26
+POW_EXPONENTS = (0.3, 2.2, 0.9, 0.45, 2.5, 2.0, 2.4)
+MIRROR_F64_OPS = {"sin": 11, "log": 22, "log2": 22, "exp": 20, "pow": 42}
+MIRRORS_REPLACE = "none, XLA's inline sin/log/exp in the reference's fusions"
 
 # (src_h, src_w, viewport) of the xbr kernel checks beyond the main path's
 # own shape: x ratios 2 and 3, an output width that is no integer ratio
@@ -548,7 +564,35 @@ def phase_warp(gen):
                 check(err == 0.0, f"warp LINEAR {mode}: not bit-equal off the NaNs (max |d| {err:.3e})")
             worst = max(worst, err)
             say("4", f"warp_sample {'LINEAR' if lin else 'NEAREST'} {mode}: ok (max |d| {err:.3e})")
+    # A batch of WARP_BATCH frames (the kernel samples every frame at one
+    # pixel's taps), RGBA (the float4 path), RGB and an RGBA view off the
+    # 16-byte grid (the general path), on the same coordinates.
+    flat = torch.rand((WARP_BATCH * SRC_HW[0] * SRC_HW[1] * 4 + 1,), generator=gen, device=DEV)
+    for label, btex, general in (
+        ("RGBA", flat[:-1].view(WARP_BATCH, SRC_HW[0], SRC_HW[1], 4), 0),
+        ("RGB", flat[:WARP_BATCH * SRC_HW[0] * SRC_HW[1] * 3].view(WARP_BATCH, SRC_HW[0], SRC_HW[1], 3), 1),
+        ("RGBA 4 bytes off", flat[1:].view(WARP_BATCH, SRC_HW[0], SRC_HW[1], 4), 1),
+    ):
+        for lin in (False, True):
+            ws.general_launches(reset=True)
+            got = ws.warp_sample(btex, u, v, filter_linear=lin, wrap_mode="clamp_to_border")
+            taken = ws.general_launches(reset=True)
+            want = ws.warp_sample_plain(btex, u, v, filter_linear=lin, wrap_mode="clamp_to_border")
+            torch.cuda.synchronize()
+            check(taken == general, f"warp {label}: {taken} launches took the general path, want {general}")
+            check(same_bits(got, want), f"warp {label} [{WARP_BATCH},...] linear={lin}: not bit-equal to plain")
+        say("4", f"warp_sample [{WARP_BATCH},{SRC_HW[0]},{SRC_HW[1]},{btex.shape[-1]}] {label} @ {ho}x{wo}, both "
+            f"filters: bit-equal to plain ({'general' if general else 'float4'} path)")
     return worst, (tex, u, v)
+
+
+def same_bits(got, want):
+    """Bit-equal where ``want`` is not NaN, NaN where it is."""
+    import torch
+
+    wn = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(got), wn)) and not bool(
+        ((got.view(torch.int32) != want.view(torch.int32)) & ~wn).any())
 
 
 @contextlib.contextmanager
@@ -744,6 +788,7 @@ def phase_mattias(gen, Engine, tmp):
     from retrocapture_tpu_torch.graph.kernels import _glsl_pow, mattias_groups, mattias_uv
     from retrocapture_tpu_torch.ops.preconv_blur import group_samples
     from retrocapture_tpu_torch.ops.cuda import blur_groups as bg
+    from retrocapture_tpu_torch.ops.cuda import mirrors as mr
     from retrocapture_tpu_torch.ops.cuda import resample as rs
     from retrocapture_tpu_torch.ops.cuda import warp_sample as ws
 
@@ -755,16 +800,19 @@ def phase_mattias(gen, Engine, tmp):
     frames = torch.randint(0, 256, (MATTIAS_BATCH, h, w, 3), generator=gen, device=DEV, dtype=torch.uint8)
     e = _mattias_engine(Engine, path)
     bg.wide_tiles(reset=True)
-    bg.LAUNCHES = rs.LAUNCHES = rs.XPHASE_LAUNCHES = ws.LAUNCHES = 0
+    bg.LAUNCHES = rs.LAUNCHES = rs.XPHASE_LAUNCHES = ws.LAUNCHES = mr.LAUNCHES = 0
     for i in range(3):
         out = e.apply(frames, output="u8")
         torch.cuda.synchronize()
         _engine_ok(e, f"mattias apply {i}")
         check(tuple(out.shape) == (MATTIAS_BATCH, VIEWPORT[1], VIEWPORT[0], 3), f"mattias shape {tuple(out.shape)}")
         check(out.dtype == torch.uint8 and out.device.type == torch.device(DEV).type, f"mattias dtype {out.dtype} on {out.device}")
-    launches = {"blur_groups_v2": bg.LAUNCHES}
+    launches = {"blur_groups_v2": bg.LAUNCHES, "mirrors": mr.LAUNCHES}
     wide = bg.wide_tiles(reset=True)
     check(launches["blur_groups_v2"] == 3, f"mattias: blur kernel launches {bg.LAUNCHES}, want 3 (one an apply)")
+    # Six mirrors a walk (the pows 2.2, 0.9, 0.45, the vignette's 0.3 in the
+    # first walk of the const program, the scanline and hash sines).
+    check(launches["mirrors"] == 3 * 5 + 1, f"mattias: mirror kernel launches {mr.LAUNCHES}, want 16")
     check(wide == 0, f"mattias: {wide} blur tiles took the wide path")
     check(int(out[:, 0, 0].max()) == 0 and float(out[:, VIEWPORT[1] // 2].float().mean()) > 5,
           "mattias: no curved black corner or no lit centre")
@@ -775,7 +823,8 @@ def phase_mattias(gen, Engine, tmp):
         _engine_ok(e2, f"mattias {dev} reference run")
     dmax, frac = _cmp_u8(outs[0], outs[1], "mattias cuda vs cpu")
     say("10", f"crt-mattias {MATTIAS_BATCH}x{h}x{w} rgb -> {VIEWPORT[1]}x{VIEWPORT[0]} u8, 3 applies: ok "
-        f"(blur launches {launches['blur_groups_v2']}, wide tiles {wide}; cuda vs cpu on 2 frames: max {dmax} step, "
+        f"(blur launches {launches['blur_groups_v2']}, wide tiles {wide}, mirror launches {launches['mirrors']}; "
+        f"cuda vs cpu on 2 frames: max {dmax} step, "
         f"{frac:.2e} of values)")
     base = outs[0]
 
@@ -1458,6 +1507,7 @@ _COUNTERS = {
     "warp_sample": ("warp_sample", "LAUNCHES", "warp_sample_kernel"),
     "blur_groups_v2": ("blur_groups", "LAUNCHES", "blur_groups_kernel"),
     "xbr_epilogue": ("xbr_epilogue", "LAUNCHES", "xbr_epilogue_kernel"),
+    "mirrors": ("mirrors", "LAUNCHES", "mirror_kernel"),
 }
 
 
@@ -1498,6 +1548,7 @@ _OPS = {
     "warp_sample": ("warp_sample", "_warp_sample_op"),
     "blur_groups_v2": ("blur_groups", "_blur_groups_op"),
     "xbr_epilogue": ("xbr_epilogue", "_xbr_epilogue_op"),
+    "mirrors": ("mirrors", "_mirror_op"),
 }
 
 
@@ -1848,6 +1899,124 @@ def phase_batched(gen, Engine, tmp, card):
     return results
 
 
+@contextlib.contextmanager
+def plain_mirror_calls():
+    """Count, for the duration of a block, the calls of the mirrors' plain
+    versions (``policy.sinf32``, ``logf32``, ``log2f32``, ``expf32``) on a
+    CUDA tensor, wherever a module of the port holds them. On the card the
+    operator ``rctpu::mirror`` runs the kernel and never a plain version,
+    so every such call is a call site that bypasses the kernel. Yields the
+    list of the functions' names, one a call."""
+    import torch
+
+    from retrocapture_tpu_torch import policy
+
+    calls = []
+    originals = {n: getattr(policy, n) for n in ("sinf32", "logf32", "log2f32", "expf32")}
+
+    def counting(name, fn):
+        def f(x, *args, **kwargs):
+            if isinstance(x, torch.Tensor) and x.device.type == "cuda":
+                calls.append(name)
+            return fn(x, *args, **kwargs)
+
+        return f
+
+    patched = [(m, n, fn) for key, m in list(sys.modules.items()) if key.startswith("retrocapture_tpu_torch")
+               for n, fn in originals.items() if getattr(m, n, None) is fn]
+    for m, n, fn in patched:
+        setattr(m, n, counting(n, fn))
+    try:
+        yield calls
+    finally:
+        for m, n, fn in patched:
+            setattr(m, n, fn)
+
+
+def mirror_bound(x, op):
+    """(bound_ms, bound_by) of the mirror kernel's op on ``x``: 8 bytes an
+    element over the memory rate, or its f64 operations over the f64 rate."""
+    t_bytes = 8 * x.numel() / PEAK_BYTES_S * 1e3
+    t_ops = MIRROR_F64_OPS[op] * x.numel() / PEAK_F64_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_mirrors(gen, Engine, tmp, card):
+    """Phase 26, the numerics mirrors' kernel (csrc/mirrors.cu) against its
+    plain versions on the card:
+
+    * sin, log, log2 and exp over all 2^32 f32 bit patterns, in chunks of
+      SWEEP_CHUNK; the pow at every exponent of POW_EXPONENTS over
+      POW_SAMPLE random bit patterns: bit-equal where the plain version is
+      not NaN, NaN where it is;
+    * the kernel at the main paths' own calls, recorded in a walked apply:
+      crt-mattias's largest pow (the output gamma over the batch's 1080p
+      planes) and nnedi3's largest exp, bit-equal to the plain version on
+      the same inputs and timed in turns beside it, with their bound.
+
+    Returns (the sweep's description, {path: the call's numbers})."""
+    import numpy as np
+    import torch
+
+    from _mattias_standin import write_standin
+    from _nnedi3_standin import write_chain
+    from retrocapture_tpu_torch.ops.cuda import mirrors as mr
+
+    t0 = time.perf_counter()
+    for op in ("sin", "log", "log2", "exp"):
+        for s in range(0, 1 << 32, SWEEP_CHUNK):
+            x = torch.arange(s - 2**31, s - 2**31 + SWEEP_CHUNK, dtype=torch.int64, device=DEV)
+            x = x.to(torch.int32).view(torch.float32)
+            check(same_bits(mr._mirror(x, op), mr.mirror_plain(x, op)),
+                  f"26 mirror {op}: not bit-equal to its plain version in the chunk at {s:#x}")
+    for p in POW_EXPONENTS:
+        c = float(np.float32(np.float32(np.float32(p) * np.float32(1.0 / np.log(2.0))) * np.float32(np.log(2.0))))
+        x = torch.randint(-2**31, 2**31 - 1, (POW_SAMPLE,), generator=gen, device=DEV, dtype=torch.int32)
+        x = x.view(torch.float32)
+        check(same_bits(mr.powf32(x, c), mr.mirror_plain(x, "pow", c)), f"26 mirror pow {p}: not bit-equal to plain")
+    del x
+    torch.cuda.empty_cache()
+    sweep = (f"sin, log, log2, exp: all 2^32 f32 bit patterns; pow at {list(POW_EXPONENTS)}: "
+             f"{POW_SAMPLE} random bit patterns each")
+    say("26", f"mirror kernel vs its plain version: {sweep}; bit-equal off the NaNs, NaN where plain gives NaN "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    h, w = SRC_HW
+    d64 = Path(tmp) / "nnedi3-26"
+    d64.mkdir(exist_ok=True)
+    paths = {
+        "crt-mattias": (write_standin(tmp), MATTIAS_BATCH, "pow"),
+        "nnedi3": (write_chain(str(d64), 64, "rgb", height=2 * h), NNEDI3_BATCH, "exp"),
+    }
+    results = {}
+    for name, (path, batch, want_op) in paths.items():
+        frames = torch.randint(0, 256, (batch, h, w, 3), generator=gen, device=DEV, dtype=torch.uint8)
+        e = Engine(viewport=VIEWPORT, device=DEV)
+        check(e.load_preset(str(path)), f"26 {name}: load_preset: {e.last_error}")
+        with env(RCTPU_REPLAY="0"), launched(mr, "_mirror_op") as calls:
+            e.apply(frames, output="u8")
+        _engine_ok(e, f"26 {name}")
+        shapes = [f"{op} {list(x.shape)}" for x, op, _ in calls]
+        x, op, c = max((a for a in calls if a[1] == want_op), key=lambda a: a[0].numel())
+        del calls, e, frames
+        torch.cuda.empty_cache()
+        got, want = mr._mirror_op(x, op, c), mr.mirror_plain(x, op, c)
+        torch.cuda.synchronize()
+        check(same_bits(got, want), f"26 {name}: the mirror kernel's {op} {list(x.shape)} is not bit-equal to plain")
+        del got, want
+        plain_ms, k_ms = in_turns(lambda: mr.mirror_plain(x, op, c), lambda: mr._mirror_op(x, op, c), 10, device_ms,
+                                  kernel_timer=launch_timer("mirrors"), plain_iters=1)
+        b_ms, b_by = mirror_bound(x, op)
+        call = f"{op}{'' if op != 'pow' else f' {c:.6g}'} {list(x.shape)}"
+        results[name] = {"call": call, "ms": k_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+        say("26", f"{name}: a walked apply of {batch} launches the mirror kernel as {shapes}; at its largest, {call}: "
+            f"bit-equal to plain; kernel {k_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})  "
+            f"({card})")
+        del x
+        torch.cuda.empty_cache()
+    return sweep, results
+
+
 def phase_cli_traced():
     """python -m retrocapture_tpu_torch --param-mode traced, as a process of
     its own on the card: returns 0 with its stats."""
@@ -1975,6 +2144,7 @@ def main() -> int:
 
     from retrocapture_tpu_torch import Engine
     from retrocapture_tpu_torch.ops.cuda import _build
+    from retrocapture_tpu_torch.ops.cuda import mirrors as mr
     from retrocapture_tpu_torch.ops.cuda import resample as rs
     from retrocapture_tpu_torch.ops.cuda import warp_sample as ws
 
@@ -1993,19 +2163,27 @@ def main() -> int:
     rs_err = phase_resample(gen)
     ws_err, (wtex, wu, wv) = phase_warp(gen)
 
-    # Phases 5-6: the main path, counted from zero.
+    # Phases 5-6: the main path, counted from zero. From here to phase 25
+    # every mirror on the card goes through the mirrors' kernel: a call of a
+    # plain version on a CUDA tensor is a call site that bypasses it.
+    mirror_bypass = contextlib.ExitStack()
+    bypass = mirror_bypass.enter_context(plain_mirror_calls())
     rs.LAUNCHES = 0
     ws.LAUNCHES = 0
     rs.general_blocks(reset=True)
+    ws.general_launches(reset=True)
     eng, nv12 = phase_slice(gen, Engine)
     slice_launches = rs.LAUNCHES
     with tempfile.TemporaryDirectory() as td:
         weng, wframes = phase_warp_pass(gen, Engine, Path(td))
         launches = {"resample_u8": rs.LAUNCHES, "warp_sample": ws.LAUNCHES}
         rs_general = rs.general_blocks(reset=True)
+        ws_general = ws.general_launches(reset=True)
         check(slice_launches > 0 and launches["warp_sample"] > 0, f"main-path launches {launches}")
         check(rs_general == 0, f"main paths: {rs_general} resample_u8 units of work took the general path")
-        say("5-6", f"main-path launches: {launches}; resample_u8 general-path units {rs_general}")
+        check(ws_general == 0, f"main paths: {ws_general} warp_sample launches took the general path")
+        say("5-6", f"main-path launches: {launches}; resample_u8 general-path units {rs_general}; warp_sample "
+            f"general-path launches {ws_general}")
 
         # Phase 7: timings, in turns, at the slice's shapes.
         h, w = SRC_HW
@@ -2091,6 +2269,9 @@ def main() -> int:
         with env(RCTPU_REPLAY="0"):
             meng, mframes, mlaunches = phase_mattias(gen, Engine, Path(td))
         launches.update(mlaunches)
+        # The preconv option's warp launches are single-channel (the general
+        # path); the main paths' count starts again here.
+        preconv_general = ws.general_launches(reset=True)
         launches["resample_xphase"] = phase_xphase_slice(gen, Engine, Path(td))
         say("10-11", f"main-path launches: {launches}")
 
@@ -2198,6 +2379,7 @@ def main() -> int:
         # Phases 16-20: the program's front door. The counts of the two
         # kernels on these paths are read after each phase's main runs.
         os.chdir(REPO)  # the cli phase names its preset relative to the checkout
+        mr.LAUNCHES = 0
         phase_stream(Engine, card)
         phase_streams(gen, Engine, card)
         u8_launches = phase_apply_u8(gen, Engine)
@@ -2207,6 +2389,8 @@ def main() -> int:
         phase_cli(td)
         launches["resample_u8"] += u8_launches + mip_rs
         launches["warp_sample"] += mip_ws
+        launches["mirrors"] += mr.LAUNCHES
+        check(mr.LAUNCHES > 0, "16-20: mip-warp's level of detail did not launch the mirror kernel")
         say("16-20", f"main-path launches: {launches}")
 
         # Phases 21-22: the ntsc 2-phase and nnedi3 entries of the kernel
@@ -2214,9 +2398,14 @@ def main() -> int:
         # the entries' calls, a pass's one a walk of the batch (ntsc-320px
         # walks its batch in two FrameCount groups): they walk uncaptured
         # (phase 23 replays the ntsc path).
+        mr.LAUNCHES = 0
         with env(RCTPU_REPLAY="0"):
             ntsc_rs, ntsc_kd, ntsc_band = phase_ntsc(gen, Engine, td, card)
+            ntsc_mr = mr.LAUNCHES
             nn_rs, nn_kd, nn_prod = phase_nnedi3(gen, Engine, td, card)
+        check(ntsc_mr > 0 and mr.LAUNCHES > ntsc_mr, f"21-22: mirror kernel launches ntsc {ntsc_mr}, nnedi3 "
+              f"{mr.LAUNCHES - ntsc_mr}")
+        launches["mirrors"] += mr.LAUNCHES
         launches["resample_u8"] += ntsc_rs + nn_rs
         rs_err = max(rs_err, ntsc_kd, nn_kd)
         say("21-22", f"main-path launches: {launches}")
@@ -2248,7 +2437,7 @@ def main() -> int:
         for k, n in rp_launches.items():
             launches[k] += n
         check(rp_launches["resample_u8"] > 0, f"23: the blit was not launched on the replayed paths ({rp_launches})")
-        for k in ("warp_sample", "blur_groups_v2", "xbr_epilogue"):
+        for k in ("warp_sample", "blur_groups_v2", "xbr_epilogue", "mirrors"):
             check(in_graph[k] > 0, f"23: {k} ran in no graph on the replayed paths ({in_graph})")
         say("23", f"launch calls on the replayed paths: {rp_launches}; kernel runs inside the graphs of one "
             f"replayed apply a path: {in_graph}")
@@ -2256,6 +2445,16 @@ def main() -> int:
 
         # Phase 25: the batched branch of the stateless chains.
         batched = phase_batched(gen, Engine, Path(td), card)
+        ws_general += ws.general_launches(reset=True)
+        check(ws_general == 0, f"main paths: {ws_general} warp_sample launches took the general path")
+        mirror_bypass.close()
+        check(not bypass, f"a plain mirror ran on the card {len(bypass)} times ({sorted(set(bypass))}): a call site "
+              "bypasses the mirror kernel")
+        say("5-25", f"main paths: warp_sample general-path launches {ws_general} (the preconv option's single-channel "
+            f"textures: {preconv_general}); plain mirror calls on the card {len(bypass)}")
+
+        # Phase 26: the numerics mirrors' kernel against its plain version.
+        mirror_sweep, mirror_calls = phase_mirrors(gen, Engine, Path(td), card)
 
     # Each kernel's bound at its timed shape: inputs read once, outputs
     # written once; f32 operations counted per output value or pixel.
@@ -2275,11 +2474,14 @@ def main() -> int:
         "xbr_epilogue": bound(nbytes(xS, xmaps.bx, xmaps.fpx, xmaps.fpy) + 4 * 65 + px * 16, 253 * px),
     }
 
+    bounds["mirrors"] = (mirror_calls["crt-mattias"]["bound_ms"], mirror_calls["crt-mattias"]["bound_by"])
+
     def entry(name, source, replaces, launched, err, ms, plain, bound_of, library):
         b_ms, b_by = bounds[bound_of]
         return {
             "name": name, "route": "cuda", "source": f"retrocapture_tpu_torch/csrc/{source}",
-            "replaces": f"retrocapture_tpu/ops/pallas/{replaces}", "launches": launched, "max_abs_err": err,
+            "replaces": f"retrocapture_tpu/ops/pallas/{replaces}" if replaces else MIRRORS_REPLACE,
+            "launches": launched, "max_abs_err": err,
             "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None if library is None else lib[library],
             # The kernel's executions inside the CUDA graphs of one replayed
@@ -2306,6 +2508,16 @@ def main() -> int:
                              launches[f"blur_groups_{mode}"], blur_err[mode], *blur_ms[mode], "blur_groups", None))
     kernels.append(entry("xbr_epilogue", "xbr_epilogue.cu", "xbr_epilogue.py:58", launches["xbr_epilogue"], xb_err,
                          xb_ms, xb_plain, "xbr_epilogue", None))
+    # The port's own kernel: crt-mattias's output-gamma pow, nnedi3's exp
+    # beside it, both at the call a walked apply makes; library_ms None (no
+    # torch call computes these bits).
+    mm = mirror_calls["crt-mattias"]
+    kernels.append(entry("mirrors", "mirrors.cu", None, launches["mirrors"], 0.0, mm["ms"], mm["plain_ms"], "mirrors",
+                         None))
+    kernels[-1]["call"] = mm["call"]
+    kernels[-1]["other_shapes"] = [
+        {k: mirror_calls["nnedi3"][k] for k in ("call", "ms", "plain_ms", "bound_ms", "bound_by")}]
+    kernels[-1]["sweep"] = mirror_sweep
     # Beside the keys every entry has: the blit at its other two timed
     # shapes, and the general-path counts of the main paths (checked 0).
     kernels[0]["other_shapes"] = [
@@ -2346,8 +2558,10 @@ def main() -> int:
                 k["bound_ms"], k["bound_by"] = bounds["blur_groups_32"]
                 k["batched_launch_shape"] = blur32_shape
     check(not fallbacks, f"vmap took its per-example fallback for: {sorted(fallbacks)}")
-    kernels[-1]["general_path_blocks"] = xe.general_blocks()
-    check(kernels[-1]["general_path_blocks"] == 0, "xbr_epilogue: blocks took the general path at the main shape")
+    xbr = next(k for k in kernels if k["name"] == "xbr_epilogue")
+    xbr["general_path_blocks"] = xe.general_blocks()
+    check(xbr["general_path_blocks"] == 0, "xbr_epilogue: blocks took the general path at the main shape")
+    kernels[1]["general_path_launches"] = ws_general
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({

@@ -21,12 +21,11 @@ code contracts ``a*b + c`` into one rounding where the tests
 which ``fma32`` reproduces,
 and divides by a constant as a multiply by its reciprocal, taken in
 f32 (``f32(1) / f32(c)``, one ulp below ``f32(1/c)`` for c = 3.14). The
-f32 ``sin`` is ``policy.sinf32``: the C library's ``sinf`` that XLA's CPU
-code calls, repeated in float64 tensor ops, so that the CPU and CUDA
-runs of the port agree with it and with each other.
-
-The pows take XLA's own ``log`` and ``exp`` (``policy.logf32``,
-``policy.expf32``), as the jitted reference does.
+f32 ``sin`` is the C library's ``sinf`` that XLA's CPU code calls, and the
+pows take XLA's own ``log`` and ``exp``, as the jitted reference does:
+``ops/cuda/mirrors`` computes them (the mirrors' CUDA kernel on a card,
+``policy.sinf32``, ``logf32`` and ``expf32`` on the CPU), so that the CPU
+and CUDA runs of the port agree with the reference and with each other.
 """
 
 from __future__ import annotations
@@ -37,7 +36,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from retrocapture_tpu_torch.policy import expf32, fma32, fmaf32, logf32, sinf32, unrecorded, upload, walk_program
+from retrocapture_tpu_torch.ops.cuda import mirrors
+from retrocapture_tpu_torch.policy import fma32, fmaf32, unrecorded, upload, walk_program
 
 __all__ = ["find_kernel"]
 
@@ -48,11 +48,11 @@ def _glsl_pow(x, p: float):
     """Non-integer pow as the reference's kernels write it, exp2(p *
     log2(x)), in the form jitted XLA computes: its simplifier folds the
     two base-2 conversions into one constant, ``exp(log(x) * f32(f32(p *
-    f32(1/ln 2)) * f32(ln 2)))``, with XLA's own ``log`` and ``exp``
-    (``policy.logf32``, ``policy.expf32``). NaN for x<0 flushes to 0 at
-    the RGBA8 store."""
+    f32(1/ln 2)) * f32(ln 2)))``, with XLA's own ``log`` and ``exp``, in
+    one pass (``mirrors.powf32``). NaN for x<0 flushes to 0 at the RGBA8
+    store."""
     c = _F(_F(_F(p) * _F(1.0 / np.log(2.0))) * _F(np.log(2.0)))
-    return expf32(logf32(x) * float(c))
+    return mirrors.powf32(x, float(c))
 
 
 def _rand_dt_sn(co_u, co_v):
@@ -67,7 +67,7 @@ def _rand_dt_sn(co_u, co_v):
 def _rand(co_u, co_v):
     """crt-mattias.glsl rand(): precision-safe hash
     fract(sin(mod(dot(co, (12.9898, 78.233)), 3.14)) * 43758.5453)."""
-    s = sinf32(_rand_dt_sn(co_u, co_v)[1], below_120=True) * float(_F(43758.5453))
+    s = mirrors.sinf32(_rand_dt_sn(co_u, co_v)[1]) * float(_F(43758.5453))
     return s - torch.floor(s)
 
 
@@ -303,13 +303,13 @@ def _mattias_kernel(ctx, sh):
     col = col * upload(np.array([0.95, 1.05, 0.95], np.float32), dev)
     col = fma32(fma32(col, col, -col), 0.3, col)
     # The scanline phase of every pixel and the flicker's one phase go
-    # through sinf32 together: one chain of launches, not two.
+    # through the sine together: one launch, not two.
     if isinstance(scanspeed, torch.Tensor):
         scan_t = ((fcf * float(t60)) * scanspeed) * 3.5
     else:
         scan_t = fcf * float(_F(_F(t60 * scanspeed) * _F(3.5)))
     scan_arg = fma32(bv, float(_F(_F(oh) * _F(1.5))), scan_t)
-    sines = sinf32(torch.cat([scan_arg.reshape(-1), (fcf * float(_F(300.0) * t60)).reshape(1)]))
+    sines = mirrors.sinf32(torch.cat([scan_arg.reshape(-1), (fcf * float(_F(300.0) * t60)).reshape(1)]))
     scans = torch.clamp(fma32(sines[:-1].reshape(oh, ow), 0.15, 0.35), 0.0, 1.0)
     col = col * (_glsl_pow(scans, 0.9) * 3.8)[..., None]
     col = col * fma32(sines[-1], 0.0015, 1.0)
@@ -977,7 +977,7 @@ def _nnedi3_kernel(ctx, sh, *, axis: int, comps: int):
     mstd1 = mstd1 * mstd2
 
     d = (wt @ S64).to(torch.float32)  # [2 nns, h*w*comps]
-    e1 = expf32(d[:nns] * mstd2 + b1)
+    e1 = mirrors.expf32(d[:nns] * mstd2 + b1)
     s2 = d[nns:] * mstd2 + b2
     wsum = e1.to(torch.float64).sum(dim=0).to(torch.float32)
     vsum = (e1 * (s2 / (1.0 + torch.abs(s2)))).to(torch.float64).sum(dim=0).to(torch.float32)

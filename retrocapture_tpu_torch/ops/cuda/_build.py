@@ -23,7 +23,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "KERNELS", "load", "build_all", "BUILD_LOG"]
+__all__ = ["CSRC", "BUILD_DIR", "KERNELS", "EXTRA_FLAGS", "load", "build_all", "BUILD_LOG"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -31,15 +31,21 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 # name -> (C entry point, its argument types); every entry returns
 # cudaGetLastError() as an int and takes the stream last.
 KERNELS = {
     "resample_u8": ("resample_u8_launch", [_P] * 12 + [_I] * 9 + [_P]),
-    "warp_sample": ("warp_sample_launch", [_P] * 4 + [_I] * 7 + [_P]),
+    "warp_sample": ("warp_sample_launch", [_P] * 4 + [_I] * 8 + [_P]),
     "blur_groups": ("blur_groups_launch", [_P] * 7 + [_I] * 8 + [_P]),
     "resample_xphase": ("resample_xphase_launch", [_P, _P] + [_P] * 7 + [_I] * 6 + [_P]),
     "xbr_epilogue": ("xbr_epilogue_launch", [_P] * 8 + [_I] * 7 + [_P]),
+    "mirrors": ("mirrors_launch", [_P, _P, _L, _I, _F, _P]),
 }
+# nvcc flags of one source beyond NVCC_FLAGS: the mirrors' roundings are
+# all explicit, and no multiply-add may be contracted behind them.
+EXTRA_FLAGS = {"mirrors": ["-fmad=false"]}
 
 NVCC_FLAGS = [
     "-gencode",
@@ -83,7 +89,7 @@ def _build(names) -> None:
     procs = {}
     for name, out in todo.items():
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp)
     failed = []
     for name, (proc, tmp) in procs.items():

@@ -3,10 +3,12 @@
 Replaces ``retrocapture_tpu/ops/pallas/warp_sample.py:warp_sample_pallas``.
 Every ``texture()`` whose coordinates are not separable over the output
 grid (every CRT-curvature shader) lands here. The kernel
-(``csrc/warp_sample.cu``) is one thread per output pixel reading at most
-four texels per channel through L1, with the reference's gather index
-math bit for bit; it takes a batch of textures natively and has no
-texture-size limit.
+(``csrc/warp_sample.cu``) is one thread per output pixel that computes its
+taps once and samples every texture of the batch at them, reading at most
+four texels a frame through L1, with the reference's gather index math bit
+for bit; it has no texture-size limit. An RGBA texture (C = 4) at a
+16-byte-aligned address takes float4 loads and stores; any other takes a
+channel at a time, counted in ``general_launches()``.
 
 ``warp_sample`` launches the kernel for a CUDA tensor and takes the plain
 version (``sampling.sample2d_gather``, the reference's gather path) only
@@ -26,9 +28,10 @@ import torch
 
 from retrocapture_tpu_torch.ops.sampling import sample2d_gather
 
-__all__ = ["warp_sample", "warp_sample_plain", "LAUNCHES"]
+__all__ = ["warp_sample", "warp_sample_plain", "general_launches", "LAUNCHES"]
 
 LAUNCHES = 0
+_GENERAL_LAUNCHES = 0
 
 _MODE = {"clamp_to_edge": 0, "clamp_to_border": 1, "repeat": 2, "mirrored_repeat": 3}
 
@@ -42,7 +45,7 @@ def _warp_sample_op(tex: torch.Tensor, u: torch.Tensor, v: torch.Tensor, filter_
     ``[B, HO, WO, C]``: the kernel on a card."""
     from retrocapture_tpu_torch.ops.cuda._build import load
 
-    global LAUNCHES
+    global LAUNCHES, _GENERAL_LAUNCHES
     t4 = tex.contiguous()
     uu, vv = u.contiguous(), v.contiguous()
     b, h, w, c = t4.shape
@@ -50,15 +53,28 @@ def _warp_sample_op(tex: torch.Tensor, u: torch.Tensor, v: torch.Tensor, filter_
     out = torch.empty((b, ho, wo, c), dtype=torch.float32, device=t4.device)
     if out.numel() == 0:
         return out
+    vec = c == 4 and t4.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     rc = load("warp_sample")(
         t4.data_ptr(), uu.data_ptr(), vv.data_ptr(), out.data_ptr(),
-        b, h, w, c, ho * wo, int(bool(filter_linear)), _MODE[wrap_mode],
+        b, h, w, c, ho * wo, int(bool(filter_linear)), _MODE[wrap_mode], int(vec),
         torch.cuda.current_stream(t4.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"warp_sample kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
+    _GENERAL_LAUNCHES += not vec
     return out
+
+
+def general_launches(reset: bool = False) -> int:
+    """The kernel launches since the last reset that took the channel-at-a-
+    time path (C other than 4, or a texture not 16-byte aligned).
+    ``reset`` zeroes the count."""
+    global _GENERAL_LAUNCHES
+    n = _GENERAL_LAUNCHES
+    if reset:
+        _GENERAL_LAUNCHES = 0
+    return n
 
 
 @_warp_sample_op.register_kernel("cpu")

@@ -37,7 +37,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from retrocapture_tpu_torch.policy import fma32, fmaf32, ifloor32, log2f32, upload, walk_program
+from retrocapture_tpu_torch.ops.cuda import mirrors
+from retrocapture_tpu_torch.policy import fma32, fmaf32, ifloor32, upload, walk_program
 
 __all__ = [
     "sample2d",
@@ -606,7 +607,7 @@ def sample2d_warped_mip(
     floor_rho = torch.full((), 1e-12, dtype=torch.float32, device=tex.device)
     rho = torch.maximum(torch.maximum(dx, dy), floor_rho)
     max_lod = _max_lod(h, w)
-    lod = torch.clamp(log2f32(rho), 0.0, float(max_lod))
+    lod = torch.clamp(mirrors.log2f32(rho), 0.0, float(max_lod))
     if not filter_linear:
         lod = torch.zeros_like(lod)  # NEAREST min filter: base level
     l0 = torch.floor(lod)

@@ -274,6 +274,7 @@ _SIN_C = tuple(
     float.fromhex(h)
     for h in ("0x1p0", "-0x1.ffffffd0c621cp-2", "0x1.55553e1068f19p-5", "-0x1.6c087e89a359dp-10", "0x1.99343027bf8c3p-16")
 )
+_SIN_TINY = 2.0**-12
 _TWO_OVER_PI = 0xA2F9836E4E441529FC2757D1F534DDC0DB6295993C439041
 _INV_PIO4 = [(_TWO_OVER_PI >> (184 - 8 * i)) & 0xFFFFFFFF for i in range(24)]
 _M32 = 0xFFFFFFFF
@@ -356,7 +357,9 @@ def sinf32(x: torch.Tensor, *, below_120: bool = False) -> torch.Tensor:
     out = torch.where((n & 1).bool(), cos, sin) * sign.to(torch.float64)
     if not below_120:
         out = torch.where(torch.isinf(xd), float("nan"), out)
-    return out.to(torch.float32)
+    # glibc returns x itself for |x| < 2^-12: the polynomial gives the same
+    # bits there but for -0.0, which it turns into +0.0.
+    return torch.where(x.abs() < _SIN_TINY, x, out.to(torch.float32))
 
 
 # XLA's inline f32 log and exp (the Cephes logf and expf forms), read from

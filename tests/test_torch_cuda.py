@@ -21,6 +21,7 @@ from _xbr_standin import write_standin as write_xbr_standin
 from retrocapture_tpu_torch.graph import kernels as tk
 from retrocapture_tpu_torch.graph.kernels import mattias_groups, mattias_uv
 from retrocapture_tpu_torch.ops.cuda import blur_groups as bg
+from retrocapture_tpu_torch.ops.cuda import mirrors as mr
 from retrocapture_tpu_torch.ops.cuda import resample as rs
 from retrocapture_tpu_torch.ops.cuda import warp_sample as ws
 from retrocapture_tpu_torch.ops.cuda import xbr_epilogue as xe
@@ -859,10 +860,14 @@ def test_batched_launches_equal_single_launches(cuda_device):
     bu, bv = mattias_uv(120, 90, 0.5, cuda_device, cross=True)
     S, bx, fpx, fpy = _xbr_inputs(4, 80, 240, 90, 96)
     maps = xe.prepare_maps(bx, fpx, fpy, 80, cuda_device)
+    tex4 = torch.from_numpy(rng.random((4, 60, 80, 4), np.float32)).to(cuda_device)
     cases = [
         (ws, lambda t: ws.warp_sample(t, u, v, filter_linear=True), tex),
+        (ws, lambda t: ws.warp_sample(t, u, v, filter_linear=True), tex4),
         (bg, lambda t: torch.stack([p for _, p in sorted(bg.blur5x5_groups(t, bu, bv, groups).items())]), tex),
         (xe, lambda s: xe.xbr_epilogue(s[None], maps)[0], S.to(cuda_device)),
+        (mr, lambda t: mr.powf32(t, 0.45), tex4),
+        (mr, lambda t: mr.sinf32(t * 300.0 - 150.0), tex4),
     ]
     for module, fn, batch in cases:
         before = module.LAUNCHES
@@ -871,3 +876,151 @@ def test_batched_launches_equal_single_launches(cuda_device):
         want = torch.stack([fn(x) for x in batch])
         torch.cuda.synchronize()
         assert torch.equal(got, want), module.__name__
+
+
+# -- the numerics mirrors (csrc/mirrors.cu) and the redesigned warp kernel ----
+
+SWEEP_CHUNK = 1 << 27
+
+
+def _same_bits(got, want):
+    """Bit-equal where the plain version is not NaN, NaN where it is."""
+    wn = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(got), wn)) and not bool(
+        ((got.view(torch.int32) != want.view(torch.int32)) & ~wn).any())
+
+
+@pytest.mark.parametrize("op", ["sin", "log", "log2", "exp"])
+def test_mirror_kernel_exhaustive(cuda_device, op):
+    """Every one of the 2^32 f32 bit patterns, in chunks, against the plain
+    version on the card."""
+    before = mr.LAUNCHES
+    for s in range(0, 1 << 32, SWEEP_CHUNK):
+        x = torch.arange(s - 2**31, s - 2**31 + SWEEP_CHUNK, dtype=torch.int32, device=cuda_device)
+        x = x.view(torch.float32)
+        got = mr._mirror(x, op)
+        assert _same_bits(got, mr.mirror_plain(x, op)), (op, hex(s))
+    assert mr.LAUNCHES == before + (1 << 32) // SWEEP_CHUNK
+
+
+@pytest.mark.parametrize("p", [0.3, 2.2, 0.9, 0.45, 2.5, 2.0, 2.4])
+def test_mirror_pow_kernel(cuda_device, p):
+    """The pow at each exponent the port uses (crt-mattias's four, the ntsc
+    gammas), over 2^26 random bit patterns and 2^24 values in [0, 2), and
+    through graph/kernels._glsl_pow."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(int(p * 100))
+    c = float(np.float32(np.float32(np.float32(p) * np.float32(1.0 / np.log(2.0))) * np.float32(np.log(2.0))))
+    bits = torch.randint(-2**31, 2**31 - 1, (1 << 26,), generator=g, device=cuda_device, dtype=torch.int32)
+    for x in (bits.view(torch.float32), torch.rand((1 << 24,), generator=g, device=cuda_device) * 2.0):
+        got = mr.powf32(x, c)
+        assert _same_bits(got, mr.mirror_plain(x, "pow", c)), p
+        assert torch.equal(tk._glsl_pow(x, p).view(torch.int32), got.view(torch.int32))
+
+
+@pytest.mark.parametrize("c", [3, 4])
+@pytest.mark.parametrize("b", [1, 8, 32])
+def test_warp_kernel_over_a_batch_equals_plain(cuda_device, b, c):
+    """The redesigned warp kernel (the taps once a pixel, every frame at
+    them) on a batch of textures at an odd output size, both filters, every
+    wrap, special coordinates among them: bit-equal to the plain gather;
+    RGBA takes the float4 path, RGB the general one."""
+    rng = np.random.default_rng(100 + b + c)
+    tex = torch.from_numpy(rng.random((b, 37, 53, c)).astype(np.float32)).to(cuda_device)
+    u = (rng.random((101, 203)) * 1.6 - 0.3).astype(np.float32)
+    v = (rng.random((101, 203)) * 1.6 - 0.3).astype(np.float32)
+    u[0, :6] = [np.nan, np.inf, -np.inf, 1e10, -1e10, 3e9]
+    v[1, :6] = [np.nan, np.inf, -np.inf, 1e10, -1e10, 3e9]
+    u, v = torch.from_numpy(u).to(cuda_device), torch.from_numpy(v).to(cuda_device)
+    for linear in (False, True):
+        for wrap in WRAP_MODES:
+            ws.general_launches(reset=True)
+            got = ws.warp_sample(tex, u, v, filter_linear=linear, wrap_mode=wrap)
+            assert ws.general_launches(reset=True) == (c != 4)
+            want = ws.warp_sample_plain(tex, u, v, filter_linear=linear, wrap_mode=wrap)
+            assert got.shape == (b, 101, 203, c) and _same_bits(got, want), (linear, wrap)
+
+
+def test_warp_kernel_unaligned_texture_takes_the_general_path(cuda_device):
+    """An RGBA texture view 4 bytes off a 16-byte boundary takes the general
+    path, one 16 bytes off takes the float4 path; both bit-equal to plain."""
+    rng = np.random.default_rng(7)
+    n = 3 * 24 * 40 * 4
+    flat = torch.from_numpy(rng.random(n + 4).astype(np.float32)).to(cuda_device)
+    u = torch.from_numpy((rng.random((33, 65)) * 1.2 - 0.1).astype(np.float32)).to(cuda_device)
+    v = torch.from_numpy((rng.random((33, 65)) * 1.2 - 0.1).astype(np.float32)).to(cuda_device)
+    for offset, general in ((1, 1), (4, 0)):
+        tex = flat[offset:offset + n].view(3, 24, 40, 4)
+        for linear in (False, True):
+            ws.general_launches(reset=True)
+            got = ws.warp_sample(tex, u, v, filter_linear=linear, wrap_mode="mirrored_repeat")
+            assert ws.general_launches(reset=True) == general
+            assert torch.equal(got, ws.warp_sample_plain(tex, u, v, filter_linear=linear, wrap_mode="mirrored_repeat"))
+
+
+def test_new_kernels_bit_equal_under_graph_replay(cuda_device):
+    """The warp and mirror kernels captured into a CUDA graph over fixed
+    buffers and replayed on new inputs give the bits of a direct launch."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(11)
+    tex = torch.rand((8, 60, 80, 4), generator=g, device=cuda_device)
+    u, v = mattias_uv(150, 90, 0.5, cuda_device)
+    x = torch.rand((3, 4097), generator=g, device=cuda_device)
+
+    def run():
+        return (ws.warp_sample(tex, u, v, filter_linear=True, wrap_mode="clamp_to_border"),
+                mr.powf32(x, 0.45), mr.sinf32(x * 2000.0 - 1000.0), mr.log2f32(x), mr.expf32(x * 200.0 - 100.0))
+
+    run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = run()
+    for seed in range(3):
+        tex.copy_(torch.rand(tex.shape, generator=g, device=cuda_device))
+        x.copy_(torch.rand(x.shape, generator=g, device=cuda_device))
+        before = (ws.LAUNCHES, mr.LAUNCHES)
+        graph.replay()
+        assert (ws.LAUNCHES, mr.LAUNCHES) == before  # a replay makes no launch call
+        want = run()
+        torch.cuda.synchronize()
+        for got, w in zip(outs, want):
+            assert _same_bits(got, w), seed
+
+
+@pytest.mark.parametrize("case", ["mattias const", "mattias traced", "nnedi3"])
+def test_mirror_call_sites_bit_equal_to_the_plain_path(cuda_device, tmp_path, monkeypatch, case):
+    """crt-mattias (const and traced, CURVATURE changed between applies) and
+    nnedi3 on the card through the mirrors' kernel and through their plain
+    versions on the card (the operator's CUDA implementation swapped for
+    them), replayed by graph and walked: bit-equal."""
+    if case == "nnedi3":
+        path, viewport, hw = write_nnedi3_chain(str(tmp_path), 16, "rgb", height=48), (192, 108), (24, 32)
+    else:
+        path, viewport, hw = write_standin(str(tmp_path)), (256, 144), (48, 64)
+    frames = [torch.from_numpy(np.random.default_rng(k).integers(0, 256, (3,) + hw + (3,), dtype=np.uint8)).cuda()
+              for k in range(2)]
+    kernel = mr._launch
+    runs = {}
+    for route in ("kernel", "plain"):
+        monkeypatch.setattr(mr, "_launch", kernel if route == "kernel" else mr.mirror_plain)
+        for replay in ("1", "0"):
+            monkeypatch.setenv("RCTPU_REPLAY", replay)
+            e = torch_pkg.Engine(viewport=viewport)
+            assert e.load_preset(path), e.last_error
+            if case == "mattias traced":
+                e.set_param_mode("traced")
+            before = mr.LAUNCHES
+            outs = []
+            for k, f in enumerate(frames):
+                if k and case != "nnedi3":
+                    assert e.set_parameter("CURVATURE", 0.8)
+                outs.append(e.apply(f, output="f32"))
+            torch.cuda.synchronize()
+            assert e.shader_active is True and e.last_error is None
+            assert (mr.LAUNCHES > before) == (route == "kernel")
+            runs[route, replay] = outs
+    for key, outs in runs.items():
+        for got, want in zip(outs, runs["plain", "0"]):
+            assert _same_bits(got, want), key
