@@ -25,7 +25,11 @@ own, each batched kernel launch against its plain version on its own
 inputs), then the numerics mirrors' kernel (phase 26: every f32 bit pattern
 of sin, log, log2 and exp and a sample of each pow against the plain
 versions, and its main-path calls timed; from phase 5 to 25 no plain mirror
-may run on the card),
+may run on the card), then the multiply-add operator ``rctpu::fma``
+(phase 27: random bit patterns, the edges, the tie triple, every broadcast
+form, vmap and a graph replay against ``policy.fma32`` / ``fmaf32``, and
+its main-path calls timed; from phase 5 to 25 no plain ``fma32`` or
+``fmaf32`` may run on the card but in the xbr epilogue's plain tail),
 compares them with the port's own CPU run, counts the work that left
 shared memory for global (the blur kernel's wide tiles, the blit's and the
 xbr epilogue's general-path units, the warp kernel's channel-at-a-time
@@ -83,18 +87,31 @@ DEV = "cuda"  # the card; the checks below never fall back to the CPU
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 PEAK_F64_MATMUL_S = 67e12  # FP64 on the tensor cores (the data sheet); what an f64 matmul runs on
-PEAK_F64_S = 34e12  # FP64 outside the tensor cores (the data sheet); what elementwise f64 runs on
+# Elementwise f64 outside the tensor cores issues 64 adds, multiplies or
+# FMAs a clock per SM (the data sheet's 34 TFLOP/s counts an FMA as two
+# operations; an unfused add or multiply takes a whole issue slot). Main
+# sets the rate from the card's SMs and maximum SM clock.
+F64_PER_CLOCK_SM = 64
+F64_ISSUE_S = None
 
 # Phase 26, the numerics mirrors' kernel: every f32 bit pattern in chunks
 # for sin, log, log2 and exp, a random sample for the pow at each exponent
-# the port uses (crt-mattias's four, the ntsc gammas); the f64 operations
-# an element takes (dmul/dadd/dsub; sin: the least a non-tiny argument
-# takes, 11 of 11-15), for the bound.
+# the port uses (crt-mattias's four, the ntsc gammas); the operations an
+# element takes, for the bound: f64 adds and multiplies (sin: the least a
+# non-tiny argument takes, 11 of 11-15) over the f64 issue rate, and f32
+# operations (an FFMA two) over the f32 rate (log 11 FFMA, 5 FADD and 3
+# FMUL; exp 9, 1 and 2; log2 an FMUL more than log; pow log, an FMUL and
+# exp).
 SWEEP_CHUNK = 1 << 27
 POW_SAMPLE = 1 << 26
 POW_EXPONENTS = (0.3, 2.2, 0.9, 0.45, 2.5, 2.0, 2.4)
-MIRROR_F64_OPS = {"sin": 11, "log": 22, "log2": 22, "exp": 20, "pow": 42}
+MIRROR_OPS = {"sin": (11, 0), "log": (0, 30), "log2": (0, 31), "exp": (0, 21), "pow": (0, 52)}
 MIRRORS_REPLACE = "none, XLA's inline sin/log/exp in the reference's fusions"
+
+# Phase 27, the multiply-add operator rctpu::fma: random bit-pattern
+# triples a mode against policy.fma32 / fmaf32.
+FMA_SAMPLE = 1 << 26
+FMA_REPLACE = "none, XLA's contracted multiply-adds in the reference's fusions"
 
 # (src_h, src_w, viewport) of the xbr kernel checks beyond the main path's
 # own shape: x ratios 2 and 3, an output width that is no integer ratio
@@ -302,6 +319,38 @@ def event_ms(fn, iters):
     return start.elapsed_time(stop) / iters
 
 
+# torch.profiler windows on the card were seen to come back with no device
+# record at all (one in many windows of a run): such a window is profiled
+# again, up to this many times in all.
+PROFILE_TRIES = 4
+
+
+def device_records(fn):
+    """The CUDA activity records of one call of fn from torch.profiler,
+    the trailing spin kernel left out. A window that holds no record is
+    profiled again (PROFILE_TRIES in all); returns [] if every one was
+    empty."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+            # Windows on the card were seen to lose their last device
+            # record when the profiler stops: a short trailing kernel, left
+            # out of what is returned, stands last in its place.
+            torch.cuda._sleep(_SPIN_CYCLES)
+            torch.cuda.synchronize()
+        records = [e for e in prof.events() if e.device_type == DeviceType.CUDA and _SPIN not in e.name]
+        if records:
+            return records
+        say("--", f"torch.profiler recorded no device time in window {attempt + 1} of {PROFILE_TRIES}")
+    return []
+
+
 def device_ms(fn, iters):
     """Mean device milliseconds per call of fn: the summed duration of the
     device work (kernels and copies) that iters calls enqueue, from
@@ -309,25 +358,19 @@ def device_ms(fn, iters):
     it. Used for the plain versions (thousands of small kernels) and the
     device-busy time of an apply; a kernel of the port is timed by
     launch_ms, because profiler windows on the card were seen to lose a
-    launch's record."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    launch's record. Where every window came back empty, the time is the
+    CUDA events' span of iters calls (event_ms), which holds the host's
+    gaps too, and says so."""
+    def calls():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-        # Windows on the card were seen to lose their last device record
-        # when the profiler stops: a short trailing kernel, left out of
-        # the sum, stands last in its place.
-        torch.cuda._sleep(_SPIN_CYCLES)
-        torch.cuda.synchronize()
-    records = [e for e in prof.events() if e.device_type == DeviceType.CUDA and _SPIN not in e.name]
-    total_us = sum(e.time_range.elapsed_us() for e in records)
-    check(total_us > 0, "torch.profiler recorded no device time")
-    return total_us / 1e3 / iters
+
+    records = device_records(calls)
+    if not records:
+        ms = event_ms(fn, iters)
+        say("--", f"device time from CUDA events instead: {ms:.4f} ms a call, host gaps included")
+        return ms
+    return sum(e.time_range.elapsed_us() for e in records) / 1e3 / iters
 
 
 @contextlib.contextmanager
@@ -415,7 +458,8 @@ def launched(module, op, shapes_only=False):
 
     def rec(*args):
         if not any(isinstance(a, torch.Tensor) and torch._C._functorch.is_batchedtensor(a) for a in args):
-            calls.append(tuple(args[0].shape) if shapes_only else args)
+            first = next(a for a in args if isinstance(a, torch.Tensor))
+            calls.append(tuple(first.shape) if shapes_only else args)
         return orig(*args)
 
     setattr(module, op, rec)
@@ -593,6 +637,16 @@ def same_bits(got, want):
     wn = torch.isnan(want)
     return bool(torch.equal(torch.isnan(got), wn)) and not bool(
         ((got.view(torch.int32) != want.view(torch.int32)) & ~wn).any())
+
+
+def abs_err(got, want):
+    """The largest |got - want| off ``want``'s NaNs: 0 where the bits
+    agree, NaN where ``got`` alone is NaN."""
+    import torch
+
+    d = torch.where(got.view(torch.int32) == want.view(torch.int32), 0.0, (got - want).abs())
+    d = torch.where(torch.isnan(want), 0.0, d)
+    return float(d.max()) if d.numel() else 0.0
 
 
 @contextlib.contextmanager
@@ -1508,6 +1562,7 @@ _COUNTERS = {
     "blur_groups_v2": ("blur_groups", "LAUNCHES", "blur_groups_kernel"),
     "xbr_epilogue": ("xbr_epilogue", "LAUNCHES", "xbr_epilogue_kernel"),
     "mirrors": ("mirrors", "LAUNCHES", "mirror_kernel"),
+    "fma": ("fma", "LAUNCHES", "::fma_"),
 }
 
 
@@ -1528,17 +1583,7 @@ def kernel_runs(fn):
     """How many times the device ran each of the port's kernels during one
     call of fn (inside a CUDA graph or not): its executions in
     torch.profiler's CUDA activity, by the kernel's function name."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-        torch.cuda._sleep(_SPIN_CYCLES)  # stands last in place of any record the stop loses (device_ms)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    names = [e.name for e in device_records(fn)]
     return {k: sum(fname in n for n in names) for k, (_, _, fname) in _COUNTERS.items()}
 
 
@@ -1549,6 +1594,7 @@ _OPS = {
     "blur_groups_v2": ("blur_groups", "_blur_groups_op"),
     "xbr_epilogue": ("xbr_epilogue", "_xbr_epilogue_op"),
     "mirrors": ("mirrors", "_mirror_op"),
+    "fma": ("fma", "_fma_op"),
 }
 
 
@@ -1563,6 +1609,39 @@ def launch_shapes():
             k: stack.enter_context(launched(importlib.import_module(f"retrocapture_tpu_torch.ops.cuda.{m}"), op, True))
             for k, (m, op) in _OPS.items()
         }
+
+
+@contextlib.contextmanager
+def kept_launches():
+    """The wrappers' launch calls, by kernel name, made in a block while a
+    walk builds what its program keeps in its tables
+    (``graph/kernels._kept``: crt-mattias's comb mask is an fma launch).
+    Only the first walk of a program builds them; a build that is not kept
+    (no program, or ``keep`` false) is part of every walk and not counted."""
+    from retrocapture_tpu_torch.graph import kernels as tk
+
+    made = dict.fromkeys(_COUNTERS, 0)
+    kept = tk._kept
+
+    def counting(key, build, keep=True):
+        if not keep or tk.walk_program() is None:
+            return kept(key, build, keep)
+
+        def counted():
+            before = _counts()
+            try:
+                return build()
+            finally:
+                for k, n in _counts().items():
+                    made[k] += n - before[k]
+
+        return kept(key, counted, keep)
+
+    tk._kept = counting
+    try:
+        yield made
+    finally:
+        tk._kept = kept
 
 
 def phase_replay(gen, Engine, tmp, card):
@@ -1591,7 +1670,8 @@ def phase_replay(gen, Engine, tmp, card):
         shape = (batch, h * 3 // 2, w) if fmt == "nv12" else (batch, h, w, 3)
         frames = [torch.randint(0, 256, shape, generator=gen, device=DEV, dtype=torch.uint8)
                   for _ in range(REPLAY_APPLIES)]
-        engines, outs, first_s, windows, counted, peak = {}, {}, {}, {}, {}, {}
+        engines, outs, first_s, windows, counted, peak, first_counted = {}, {}, {}, {}, {}, {}, {}
+        first_kept, kept = {}, {}
         for mode in ("1", "0"):
             e = Engine(viewport=VIEWPORT, device=DEV)
             check(e.load_preset(str(path)), f"23 {name}: load_preset: {e.last_error}")
@@ -1599,7 +1679,7 @@ def phase_replay(gen, Engine, tmp, card):
             if param is not None:
                 e.set_param_mode("traced")
             engines[mode] = e
-            with env(RCTPU_REPLAY=mode):
+            with env(RCTPU_REPLAY=mode), kept_launches() as kept[mode]:
                 _counts(reset=True)
                 got, seconds = [], []
                 torch.cuda.synchronize()
@@ -1614,8 +1694,12 @@ def phase_replay(gen, Engine, tmp, card):
                         got.append(e.apply(frames[k], output="u8"))
                     torch.cuda.synchronize()
                     seconds.append(time.perf_counter() - t0)
+                    if k == 0:
+                        first_counted[mode], first_kept[mode] = _counts(), dict(kept[mode])
                     if (mode, k) == ("0", 0):
-                        kernel_shapes = {n: v for n, v in shapes.items() if v}
+                        # {kernel: {launch shape: launches}} of a walked apply.
+                        kernel_shapes = {n: {str(list(sh)): v.count(sh) for sh in dict.fromkeys(v)}
+                                         for n, v in shapes.items() if v}
                 peak[mode] = (torch.cuda.max_memory_allocated() - held) / 2**30
                 # The first apply walks (and captures); the later ones are
                 # timing windows.
@@ -1640,13 +1724,20 @@ def phase_replay(gen, Engine, tmp, card):
         want_graphs = 1 if temporal or batch == REPLAY_F32_BATCH else 2
         check(stats["graphs_captured"] == want_graphs,
               f"23 {name}: {stats['graphs_captured']} graphs captured, want {want_graphs}")
-        # The walk launches each kernel the same number of times an apply;
-        # a replayed apply must run it as often on the device, with no
-        # launch call but the blit's.
+        # The walk launches each kernel the same number of times an apply,
+        # but for what the first apply builds for the program's tables and
+        # later applies read back (crt-mattias's comb mask); a replayed
+        # apply must run it as often on the device, with no launch call but
+        # the blit's.
+        check(kept["0"] == first_kept["0"], f"23 {name}: walked applies after the first built kept tables, "
+              f"{kept['0']} launches against the first's {first_kept['0']}")
         per_apply = {}
         for k, n in counted["0"].items():
-            check(n % REPLAY_APPLIES == 0, f"23 {name}: {k} launched {n} times in {REPLAY_APPLIES} walked applies")
-            per_apply[k] = n // REPLAY_APPLIES
+            later, first = n - first_counted["0"][k], first_counted["0"][k] - first_kept["0"][k]
+            check(later == first * (REPLAY_APPLIES - 1),
+                  f"23 {name}: {k} launched {first} times in the first walked apply (less {first_kept['0'][k]} for "
+                  f"the kept tables), {later} in the {REPLAY_APPLIES - 1} after it")
+            per_apply[k] = first
         _counts(reset=True)
         replays0 = rp.replay_stats()["replays"]
         runs = kernel_runs(lambda: rp.apply(frames[0], output="u8"))
@@ -1935,9 +2026,11 @@ def plain_mirror_calls():
 
 def mirror_bound(x, op):
     """(bound_ms, bound_by) of the mirror kernel's op on ``x``: 8 bytes an
-    element over the memory rate, or its f64 operations over the f64 rate."""
+    element over the memory rate, or its operations (MIRROR_OPS): f64 over
+    the f64 issue rate (F64_ISSUE_S), f32 over the f32 rate."""
     t_bytes = 8 * x.numel() / PEAK_BYTES_S * 1e3
-    t_ops = MIRROR_F64_OPS[op] * x.numel() / PEAK_F64_S * 1e3
+    f64, f32 = MIRROR_OPS[op]
+    t_ops = x.numel() * max(f64 / F64_ISSUE_S, f32 / PEAK_F32_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1954,7 +2047,8 @@ def phase_mirrors(gen, Engine, tmp, card):
       planes) and nnedi3's largest exp, bit-equal to the plain version on
       the same inputs and timed in turns beside it, with their bound.
 
-    Returns (the sweep's description, {path: the call's numbers})."""
+    Returns (the sweep's description, {path: the call's numbers}, the
+    largest absolute difference from plain over all it compared)."""
     import numpy as np
     import torch
 
@@ -1963,18 +2057,22 @@ def phase_mirrors(gen, Engine, tmp, card):
     from retrocapture_tpu_torch.ops.cuda import mirrors as mr
 
     t0 = time.perf_counter()
+    worst = 0.0
     for op in ("sin", "log", "log2", "exp"):
         for s in range(0, 1 << 32, SWEEP_CHUNK):
             x = torch.arange(s - 2**31, s - 2**31 + SWEEP_CHUNK, dtype=torch.int64, device=DEV)
             x = x.to(torch.int32).view(torch.float32)
-            check(same_bits(mr._mirror(x, op), mr.mirror_plain(x, op)),
-                  f"26 mirror {op}: not bit-equal to its plain version in the chunk at {s:#x}")
+            got, want = mr._mirror(x, op), mr.mirror_plain(x, op)
+            check(same_bits(got, want), f"26 mirror {op}: not bit-equal to its plain version in the chunk at {s:#x}")
+            worst = max(worst, abs_err(got, want))
     for p in POW_EXPONENTS:
         c = float(np.float32(np.float32(np.float32(p) * np.float32(1.0 / np.log(2.0))) * np.float32(np.log(2.0))))
         x = torch.randint(-2**31, 2**31 - 1, (POW_SAMPLE,), generator=gen, device=DEV, dtype=torch.int32)
         x = x.view(torch.float32)
-        check(same_bits(mr.powf32(x, c), mr.mirror_plain(x, "pow", c)), f"26 mirror pow {p}: not bit-equal to plain")
-    del x
+        got, want = mr.powf32(x, c), mr.mirror_plain(x, "pow", c)
+        check(same_bits(got, want), f"26 mirror pow {p}: not bit-equal to plain")
+        worst = max(worst, abs_err(got, want))
+    del x, got, want
     torch.cuda.empty_cache()
     sweep = (f"sin, log, log2, exp: all 2^32 f32 bit patterns; pow at {list(POW_EXPONENTS)}: "
              f"{POW_SAMPLE} random bit patterns each")
@@ -2003,6 +2101,7 @@ def phase_mirrors(gen, Engine, tmp, card):
         got, want = mr._mirror_op(x, op, c), mr.mirror_plain(x, op, c)
         torch.cuda.synchronize()
         check(same_bits(got, want), f"26 {name}: the mirror kernel's {op} {list(x.shape)} is not bit-equal to plain")
+        worst = max(worst, abs_err(got, want))
         del got, want
         plain_ms, k_ms = in_turns(lambda: mr.mirror_plain(x, op, c), lambda: mr._mirror_op(x, op, c), 10, device_ms,
                                   kernel_timer=launch_timer("mirrors"), plain_iters=1)
@@ -2014,7 +2113,315 @@ def phase_mirrors(gen, Engine, tmp, card):
             f"({card})")
         del x
         torch.cuda.empty_cache()
-    return sweep, results
+    return sweep, results, worst
+
+
+@contextlib.contextmanager
+def plain_fma_calls():
+    """Count, for the duration of a block, the calls of ``policy.fma32`` and
+    ``policy.fmaf32`` with a CUDA tensor among their operands, wherever a
+    module of the port holds them, but inside two kernels' plain versions,
+    which keep policy's formula and run on the card only where a phase
+    compares them: the xbr epilogue's plain tail (``ops/cuda/
+    xbr_epilogue.py``) and ``warp_sample_plain`` (the gather's lerps). On
+    the card every call site of the main paths goes through the operator
+    ``rctpu::fma``, so every such call is a call site that bypasses its
+    kernel. Yields the list of the calls, one entry (the function's name
+    and its caller) a call."""
+    import torch
+
+    from retrocapture_tpu_torch import policy
+    from retrocapture_tpu_torch.ops.cuda import warp_sample as ws
+
+    calls = []
+    originals = {n: getattr(policy, n) for n in ("fma32", "fmaf32")}
+
+    plain_tail = "retrocapture_tpu_torch.ops.cuda.xbr_epilogue"
+
+    def in_plain_version(frame):
+        if frame.f_globals.get("__name__") == plain_tail:
+            return True
+        while frame is not None and frame.f_code is not ws.warp_sample_plain.__code__:
+            frame = frame.f_back
+        return frame is not None
+
+    def counting(name, fn):
+        def f(*args):
+            caller = sys._getframe(1)
+            if any(isinstance(x, torch.Tensor) and x.device.type == "cuda" for x in args) and not in_plain_version(
+                    caller):
+                calls.append(f"{name} from {Path(caller.f_code.co_filename).name}:{caller.f_lineno} "
+                             f"{caller.f_code.co_name}")
+            return fn(*args)
+
+        return f
+
+    patched = [(m, n, fn) for key, m in list(sys.modules.items()) if key.startswith("retrocapture_tpu_torch")
+               for n, fn in originals.items() if getattr(m, n, None) is fn]
+    for m, n, fn in patched:
+        setattr(m, n, counting(n, fn))
+    try:
+        yield calls
+    finally:
+        for m, n, fn in patched:
+            setattr(m, n, fn)
+
+
+def own_bytes(t):
+    """The bytes a tensor's view addresses: a broadcast (stride-0)
+    dimension counts once."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        if stride != 0:
+            n *= size
+    return 4 * n
+
+
+def fma_bound(args, out):
+    """(bound_ms, bound_by) of ``rctpu::fma`` on its operator arguments: each
+    distinct tensor operand's own bytes read once (``fma32(col, col, -col)``
+    reads ``col`` once) and the output written once over the memory rate,
+    or its operations: fma32 an f64 multiply and an f64 add an element over
+    the f64 issue rate, fmaf32 one f32 FMA (2 operations) over the f32
+    rate."""
+    views = {(t.data_ptr(), tuple(t.shape), t.stride()): t for t in args[:3] if t is not None}
+    t_bytes = (sum(own_bytes(t) for t in views.values()) + 4 * out.numel()) / PEAK_BYTES_S * 1e3
+    t_ops = out.numel() * (2 / F64_ISSUE_S if args[6] == 0 else 2 / PEAK_F32_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+@contextlib.contextmanager
+def fma_call(keep):
+    """Keep, of the launches of ``rctpu::fma`` in a block (the batched calls,
+    as ``launched`` records them), the arguments of the one that
+    ``keep(args, kept)`` prefers to the one kept so far (``kept`` None at
+    first). Yields a one-element list that holds them at the end."""
+    import torch
+
+    from retrocapture_tpu_torch.ops.cuda import fma as fm
+
+    orig = fm._fma_op
+    kept = [None]
+
+    def rec(*args):
+        if not any(isinstance(a, torch.Tensor) and torch._C._functorch.is_batchedtensor(a) for a in args):
+            if keep(args, kept[0]):
+                kept[0] = args
+        return orig(*args)
+
+    fm._fma_op = rec
+    try:
+        yield kept
+    finally:
+        fm._fma_op = orig
+
+
+def fma_graph_replay(gen, wrappers, plains, held):
+    """The fma operator with 0-d operands captured into a CUDA graph and
+    replayed 3 times, the 0-d buffers and the tensor operand rewritten
+    between replays: each replay reads the values of its time (bit-equal to
+    the plain version on them, by ``held(got, want, what)``) and makes no
+    launch call."""
+    import torch
+
+    from retrocapture_tpu_torch.ops.cuda import fma as fm
+
+    vh, vw = VIEWPORT[1], VIEWPORT[0]
+    x = torch.rand((3, vh, vw), generator=gen, device=DEV)
+    s, t = torch.tensor(0.8, device=DEV), torch.tensor(1.5, device=DEV)
+    graph_args = ((0, (x, s, t)), (1, (t, x[..., :1], x)), (0, (x[0], 1620.0, s)))
+
+    def run():
+        return [wrappers[m](*a) for m, a in graph_args]
+
+    run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = run()
+    for k in range(3):
+        s.fill_(0.1 * k - 0.3)
+        t.fill_(2.0 ** -k)
+        x.copy_(torch.rand(x.shape, generator=gen, device=DEV))
+        before = fm.LAUNCHES
+        graph.replay()
+        torch.cuda.synchronize()
+        check(fm.LAUNCHES == before, "27 fma: a graph replay made a launch call")
+        for got, (m, a) in zip(outs, graph_args):
+            held(got, plains[m](*a), f"27 fma: replay {k} with rewritten 0-d operands differs from plain")
+    del graph, outs, x
+    torch.cuda.empty_cache()
+
+
+def phase_fma(gen, Engine, tmp, card):
+    """Phase 27, the multiply-add operator ``rctpu::fma`` (csrc/fma.cu)
+    against ``policy.fma32`` and ``policy.fmaf32`` on the card:
+
+    * FMA_SAMPLE random bit-pattern triples a mode, every triple of the
+      edge values (NaN, +-inf, +-0, subnormals, FLT_MAX sums that
+      overflow), and the tie triple a = b = 1 + 2^-12, c = +-2^-80, where
+      the modes differ for +2^-80 alone: bit-equal off the NaNs, NaN where
+      the plain version gives NaN;
+    * every operand form the call sites pass (a scalar in each position,
+      0-d tensors, [H, W, 1] against [H, W, 3], expanded, strided and
+      transposed views, an operand off a 16-byte boundary), under
+      ``torch.func.vmap`` with the batch on a, b or c alone and on all
+      three (one launch each), and a CUDA graph replayed with its 0-d
+      operands rewritten between replays (the replay reads the new values);
+    * the kernel at the main paths' own calls, recorded in walked applies:
+      feedback-ghost's ``mix`` (the north star's pass) and crt-mattias's
+      largest epilogue call, bit-equal to the plain version on the same
+      operands and timed in turns beside it, with their bound and
+      ``torch.addcmul`` on the same operands (the same bytes; not the same
+      bits for fma32).
+
+    Returns ({call: its numbers}, the largest absolute difference from
+    plain over all it compared)."""
+    import numpy as np
+    import torch
+
+    from _mattias_standin import write_standin
+    from retrocapture_tpu_torch import policy
+    from retrocapture_tpu_torch.frontend import builtins
+    from retrocapture_tpu_torch.ops.cuda import fma as fm
+
+    t0 = time.perf_counter()
+    wrappers = {0: fm.fma32, 1: fm.fmaf32}
+    plains = {0: policy.fma32, 1: policy.fmaf32}
+
+    def bits(n):
+        return torch.randint(-2**31, 2**31 - 1, (n,), generator=gen, device=DEV, dtype=torch.int32).view(torch.float32)
+
+    worst = [0.0]
+
+    def held(got, want, what):
+        check(same_bits(got, want), what)
+        worst[0] = max(worst[0], abs_err(got, want))
+
+    for mode in (0, 1):
+        a, b, c = bits(FMA_SAMPLE), bits(FMA_SAMPLE), bits(FMA_SAMPLE)
+        held(wrappers[mode](a, b, c), plains[mode](a, b, c),
+             f"27 fma mode {mode}: not bit-equal to plain on random bit patterns")
+        del a, b, c
+    vals = torch.tensor([0.0, -0.0, float("inf"), -float("inf"), float("nan"), 1.0, -1.0, 3.4028235e38,
+                         -3.4028235e38, 1.1754944e-38, 1e-45, -1e-45, 2.5e-39, 0.5, 3.0], device=DEV)
+    edges = [t.reshape(-1) for t in torch.meshgrid(vals, vals, vals, indexing="ij")]
+    tie = torch.full((2,), 1 + 2.0**-12, device=DEV)
+    tie_c = torch.tensor([2.0**-80, -2.0**-80], device=DEV)
+    for mode in (0, 1):
+        held(wrappers[mode](*edges), plains[mode](*edges), f"27 fma mode {mode}: edges not bit-equal")
+        held(wrappers[mode](tie, tie, tie_c), plains[mode](tie, tie, tie_c),
+             f"27 fma mode {mode}: the tie triple is not bit-equal to plain")
+    t32, tf = fm.fma32(tie, tie, tie_c).tolist(), fm.fmaf32(tie, tie, tie_c).tolist()
+    check(t32 == [1 + 2.0**-11] * 2 and tf == [1 + 2.0**-11 + 2.0**-23, 1 + 2.0**-11],
+          f"27 fma: the tie triple gives fma32 {t32}, fmaf32 {tf}")
+
+    vh, vw = VIEWPORT[1], VIEWPORT[0]
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=DEV)
+
+    hw3, hw1, flat = r(vh, vw, 3), r(vh, vw, 1), r(vh * vw * 3 + 1)
+    forms = [
+        (0.92, hw3, r(vh, vw, 3)), (hw3, 0.4, r(vh, vw, 3)), (hw3, r(vh, vw, 3), -0.25), (hw3, 12.9898, 1.0),
+        (r(2)[1], hw3, 1.0), (r(vh, vw), 1620.0, torch.tensor(0.123, device=DEV)), (hw1, r(vh, vw, 3), hw3),
+        (r(1, vw, 3).expand(vh, vw, 3), hw1.expand(vh, vw, 3), hw3), (r(vh, vw, 3)[..., 2], 0.299, r(vh, vw, 3)[..., 0]),
+        (r(8, vh, vw), 0.5, r(8, 1, 1)), (r(vw, vh).t(), r(vh, vw), r(vh, 1)),
+        (flat[1:].view(vh, vw, 3), hw3, flat[:-1].view(vh, vw, 3)),
+    ]
+    for k, (a, b, c) in enumerate(forms):
+        for mode in (0, 1):
+            got = wrappers[mode](a, b, c)
+            # The kernel writes a contiguous result (a CPU run's plain version
+            # may keep an operand's layout).
+            check(got.is_contiguous() or got.device.type == "cpu", f"27 fma mode {mode}: form {k} not contiguous")
+            held(got, plains[mode](a, b, c), f"27 fma mode {mode}: broadcast form {k} not bit-equal to plain")
+    B = 8
+    cases = [((r(B, 3), hw3, r(vh, vw, 3)), (0, None, None)), ((hw3, r(3, B), 0.5), (None, 1, None)),
+             ((r(vh, vw), 1620.0, r(B)), (None, None, 0)), ((r(vh, B, vw, 3), r(vw, 1, B), r(B)), (1, 2, 0))]
+    for operands, dims in cases:
+        for mode in (0, 1):
+            before = fm.LAUNCHES
+            got = torch.func.vmap(wrappers[mode], in_dims=dims)(*operands)
+            check(fm.LAUNCHES == before + 1, f"27 fma vmap {dims}: {fm.LAUNCHES - before} launches, want 1")
+            want = torch.stack([plains[mode](*(x if d is None else x.select(d, i) for x, d in zip(operands, dims)))
+                                for i in range(B)])
+            held(got, want, f"27 fma mode {mode}: vmap with in_dims {dims} not bit-equal to a loop")
+    del forms, cases, hw3, hw1, flat, got, want
+    fma_graph_replay(gen, wrappers, plains, held)
+    say("27", f"rctpu::fma vs policy.fma32 / fmaf32: {FMA_SAMPLE} random bit-pattern triples a mode, "
+        f"{edges[0].numel()} edge triples, the tie triple (fma32 {t32}, fmaf32 {tf}), 12 broadcast forms, 4 vmap "
+        "cases (one launch each), a CUDA graph replayed 3 times with its 0-d operands rewritten: bit-equal off the "
+        f"NaNs, NaN where plain gives NaN ({time.perf_counter() - t0:.1f} s)")
+
+    # The main paths' calls, recorded in walked applies.
+    h, w = SRC_HW
+    in_mix = []
+    mix = builtins._mix
+
+    def tagged_mix(*args):
+        in_mix.append(True)
+        try:
+            return mix(*args)
+        finally:
+            in_mix.pop()
+
+    def first_mix(args, kept):
+        return kept is None and bool(in_mix)
+
+    def call_bytes(a):
+        out = torch.broadcast_shapes(*(x.shape for x in a[:3] if x is not None)).numel()
+        return sum(own_bytes(x) for x in a[:3] if x is not None) + 4 * out
+
+    def largest(args, kept):
+        return kept is None or call_bytes(args) > call_bytes(kept)
+
+    paths = {
+        "feedback-ghost mix": (PRESET, "nv12", 2, first_mix),
+        "crt-mattias epilogue": (write_standin(tmp), "rgb", MATTIAS_BATCH, largest),
+    }
+    results = {}
+    builtins._mix = tagged_mix
+    try:
+        for name, (path, fmt, batch, keep) in paths.items():
+            shape = (batch, h * 3 // 2, w) if fmt == "nv12" else (batch, h, w, 3)
+            frames = torch.randint(0, 256, shape, generator=gen, device=DEV, dtype=torch.uint8)
+            e = Engine(viewport=VIEWPORT, device=DEV)
+            check(e.load_preset(str(path)), f"27 {name}: load_preset: {e.last_error}")
+            e.set_input_format(fmt)
+            with env(RCTPU_REPLAY="0"), fma_call(keep) as kept:
+                e.apply(frames, output="u8")
+            _engine_ok(e, f"27 {name}")
+            check(kept[0] is not None, f"27 {name}: the walk made no such call of rctpu::fma")
+            args = kept[0]
+            del e, frames, kept
+            torch.cuda.empty_cache()
+            a, b, c, sa, sb, sc, mode = args
+            operands = [sv if x is None else x for x, sv in ((a, sa), (b, sb), (c, sc))]
+            got, want = fm._fma_op(*args), fm.fma_plain(*operands, mode)
+            torch.cuda.synchronize()
+            held(got, want, f"27 {name}: the kernel is not bit-equal to plain on the call's operands")
+            b_ms, b_by = fma_bound(args, got)
+            # The plain version by CUDA events around its calls: a profiler
+            # window over its few large passes was seen to keep a tenth of
+            # their records.
+            plain_ms, k_ms = in_turns(lambda: fm.fma_plain(*operands, mode), lambda: fm._fma_op(*args), 10, event_ms,
+                                      kernel_timer=launch_timer("fma"))
+            ta, tb, tc = (x if isinstance(x, torch.Tensor) else torch.tensor(x, device=DEV) for x in operands)
+            lib_ms = _product_ms(lambda: torch.addcmul(tc, ta, tb), 10)
+            forms = ", ".join("scalar" if x is None else f"{list(x.shape)}{'' if x.is_contiguous() else ' view'}"
+                              for x in (a, b, c))
+            call = f"{'fma32' if mode == 0 else 'fmaf32'}({forms}) -> {list(got.shape)}"
+            results[name] = {"call": call, "ms": k_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                             "library_ms": lib_ms}
+            say("27", f"{name}: {call}: bit-equal to plain; kernel {k_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}), torch.addcmul {lib_ms:.4f} ms  ({card})")
+            del args, a, b, c, operands, got, want, ta, tb, tc
+            torch.cuda.empty_cache()
+    finally:
+        builtins._mix = mix
+    return results, worst[0]
 
 
 def phase_cli_traced():
@@ -2140,13 +2547,23 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     card = smi.strip()
     say("1", f"card: {card}")
+    global F64_ISSUE_S
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    F64_ISSUE_S = F64_PER_CLOCK_SM * sms * clock_mhz * 1e6
+    say("1", f"{sms} SMs at most {clock_mhz:.0f} MHz: elementwise f64 issues {F64_ISSUE_S / 1e12:.2f}e12 operations/s")
     say("1", f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
     from retrocapture_tpu_torch import Engine
     from retrocapture_tpu_torch.ops.cuda import _build
+    from retrocapture_tpu_torch.ops.cuda import fma as fm
     from retrocapture_tpu_torch.ops.cuda import mirrors as mr
     from retrocapture_tpu_torch.ops.cuda import resample as rs
     from retrocapture_tpu_torch.ops.cuda import warp_sample as ws
+    from retrocapture_tpu_torch.ops.cuda import xbr_epilogue as xe  # bound to policy's functions before phase 5
 
     # Phase 2: build.
     secs = _build.build_all()
@@ -2164,19 +2581,23 @@ def main() -> int:
     ws_err, (wtex, wu, wv) = phase_warp(gen)
 
     # Phases 5-6: the main path, counted from zero. From here to phase 25
-    # every mirror on the card goes through the mirrors' kernel: a call of a
-    # plain version on a CUDA tensor is a call site that bypasses it.
+    # every mirror and every multiply-add on the card goes through its
+    # kernel: a call of a plain version on a CUDA tensor is a call site that
+    # bypasses it.
     mirror_bypass = contextlib.ExitStack()
     bypass = mirror_bypass.enter_context(plain_mirror_calls())
+    fma_bypass = mirror_bypass.enter_context(plain_fma_calls())
     rs.LAUNCHES = 0
     ws.LAUNCHES = 0
+    fm.LAUNCHES = 0
     rs.general_blocks(reset=True)
     ws.general_launches(reset=True)
     eng, nv12 = phase_slice(gen, Engine)
     slice_launches = rs.LAUNCHES
     with tempfile.TemporaryDirectory() as td:
         weng, wframes = phase_warp_pass(gen, Engine, Path(td))
-        launches = {"resample_u8": rs.LAUNCHES, "warp_sample": ws.LAUNCHES}
+        launches = {"resample_u8": rs.LAUNCHES, "warp_sample": ws.LAUNCHES, "fma": fm.LAUNCHES}
+        check(launches["fma"] > 0, "5-6: the main paths did not launch the fma kernel")
         rs_general = rs.general_blocks(reset=True)
         ws_general = ws.general_launches(reset=True)
         check(slice_launches > 0 and launches["warp_sample"] > 0, f"main-path launches {launches}")
@@ -2326,7 +2747,6 @@ def main() -> int:
         # Phases 13-14: the xbr epilogue kernel against its plain version,
         # and the xbr-lv2 path, counted from zero.
         from _xbr_standin import write_standin as write_xbr_standin
-        from retrocapture_tpu_torch.ops.cuda import xbr_epilogue as xe
 
         xpath = write_xbr_standin(td)
         xb_err, (xS, xmaps) = phase_xbr_kernel(gen, Engine, xpath)
@@ -2437,7 +2857,7 @@ def main() -> int:
         for k, n in rp_launches.items():
             launches[k] += n
         check(rp_launches["resample_u8"] > 0, f"23: the blit was not launched on the replayed paths ({rp_launches})")
-        for k in ("warp_sample", "blur_groups_v2", "xbr_epilogue", "mirrors"):
+        for k in ("warp_sample", "blur_groups_v2", "xbr_epilogue", "mirrors", "fma"):
             check(in_graph[k] > 0, f"23: {k} ran in no graph on the replayed paths ({in_graph})")
         say("23", f"launch calls on the replayed paths: {rp_launches}; kernel runs inside the graphs of one "
             f"replayed apply a path: {in_graph}")
@@ -2450,11 +2870,17 @@ def main() -> int:
         mirror_bypass.close()
         check(not bypass, f"a plain mirror ran on the card {len(bypass)} times ({sorted(set(bypass))}): a call site "
               "bypasses the mirror kernel")
+        check(not fma_bypass, f"a plain fma ran on the card {len(fma_bypass)} times "
+              f"({ {c: fma_bypass.count(c) for c in sorted(set(fma_bypass))} }): a call site bypasses the fma kernel")
         say("5-25", f"main paths: warp_sample general-path launches {ws_general} (the preconv option's single-channel "
-            f"textures: {preconv_general}); plain mirror calls on the card {len(bypass)}")
+            f"textures: {preconv_general}); plain mirror calls on the card {len(bypass)}; plain fma32/fmaf32 calls "
+            f"on the card {len(fma_bypass)}")
 
         # Phase 26: the numerics mirrors' kernel against its plain version.
-        mirror_sweep, mirror_calls = phase_mirrors(gen, Engine, Path(td), card)
+        mirror_sweep, mirror_calls, mirror_err = phase_mirrors(gen, Engine, Path(td), card)
+
+        # Phase 27: the multiply-add operator against its plain versions.
+        fma_calls, fma_err = phase_fma(gen, Engine, Path(td), card)
 
     # Each kernel's bound at its timed shape: inputs read once, outputs
     # written once; f32 operations counted per output value or pixel.
@@ -2476,14 +2902,16 @@ def main() -> int:
 
     bounds["mirrors"] = (mirror_calls["crt-mattias"]["bound_ms"], mirror_calls["crt-mattias"]["bound_by"])
 
+    bounds["fma"] = (fma_calls["crt-mattias epilogue"]["bound_ms"], fma_calls["crt-mattias epilogue"]["bound_by"])
+
     def entry(name, source, replaces, launched, err, ms, plain, bound_of, library):
         b_ms, b_by = bounds[bound_of]
         return {
             "name": name, "route": "cuda", "source": f"retrocapture_tpu_torch/csrc/{source}",
-            "replaces": f"retrocapture_tpu/ops/pallas/{replaces}" if replaces else MIRRORS_REPLACE,
+            "replaces": f"retrocapture_tpu/ops/pallas/{replaces}" if ".py:" in replaces else replaces,
             "launches": launched, "max_abs_err": err,
             "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None if library is None else lib[library],
+            "library_ms": library if library is None or isinstance(library, float) else lib[library],
             # The kernel's executions inside the CUDA graphs of one replayed
             # apply of each phase-23 path (torch.profiler), which "launches"
             # (the wrapper's launch calls) does not count.
@@ -2512,12 +2940,21 @@ def main() -> int:
     # beside it, both at the call a walked apply makes; library_ms None (no
     # torch call computes these bits).
     mm = mirror_calls["crt-mattias"]
-    kernels.append(entry("mirrors", "mirrors.cu", None, launches["mirrors"], 0.0, mm["ms"], mm["plain_ms"], "mirrors",
-                         None))
+    kernels.append(entry("mirrors", "mirrors.cu", MIRRORS_REPLACE, launches["mirrors"], mirror_err, mm["ms"],
+                         mm["plain_ms"], "mirrors", None))
     kernels[-1]["call"] = mm["call"]
     kernels[-1]["other_shapes"] = [
         {k: mirror_calls["nnedi3"][k] for k in ("call", "ms", "plain_ms", "bound_ms", "bound_by")}]
     kernels[-1]["sweep"] = mirror_sweep
+    # The multiply-add operator at crt-mattias's largest epilogue call,
+    # feedback-ghost's mix beside it; library_ms torch.addcmul on the same
+    # operands (the same bytes, not fma32's bits).
+    fc = fma_calls["crt-mattias epilogue"]
+    kernels.append(entry("fma", "fma.cu", FMA_REPLACE, launches["fma"], fma_err, fc["ms"], fc["plain_ms"], "fma",
+                         fc["library_ms"]))
+    kernels[-1]["call"] = fc["call"]
+    kernels[-1]["other_shapes"] = [
+        {k: fma_calls["feedback-ghost mix"][k] for k in ("call", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}]
     # Beside the keys every entry has: the blit at its other two timed
     # shapes, and the general-path counts of the main paths (checked 0).
     kernels[0]["other_shapes"] = [

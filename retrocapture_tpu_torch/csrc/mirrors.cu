@@ -11,9 +11,22 @@
 // out with __dmul_rn / __dadd_rn / __dsub_rn and __fmul_rn / __fadd_rn /
 // __fsub_rn, and the file is built with -fmad=false besides, so nothing
 // is contracted into an FMA that the plain version does not take.
-// policy.fma32's formula (the f32 product exact in f64, one f64 add,
-// narrowed to f32) is fma32() below, not __fmaf_rn, which rounds once and
-// differs from it where the f64 sum's rounding lands on an f32 tie.
+//
+// The multiply-adds of log and exp. The plain versions take policy.fma32
+// there (the f32 product exact in f64, one f64 add, narrowed to f32, as
+// csrc/fma.cu computes it), which differs from a single-rounding __fmaf_rn only
+// where the f64 sum is inexact and lands on an f32 tie. Here every one of
+// them is __fmaf_rn: over all 2^32 f32 inputs of log and of exp, the
+// kernel with __fmaf_rn at all 20 sites, and with it at each site alone,
+// gives the bits of the kernel with the f64 formula at every input
+// (tools/torch_mirror_kernel_variants.py --sites on an H100); the exhaustive
+// sweeps of chip_smoke.py's phase 26 and tests/test_torch_cuda.py hold the
+// kernel to the plain versions at every input again. A pow is exp of
+// (log's result times c), so it keeps the bits too. The f64 formula cost
+// each multiply-add two f64 operations and about two f32 <-> f64
+// conversions, which issue 16 a clock per SM (f64 operations 64, f32
+// 128): 44 conversions a pow element, 2.4 ms of crt-mattias's output
+// gamma, against one FFMA now.
 //
 // sin always takes both reductions, chosen per element (|x| >= 120: the
 // 96-bit fixed-point product with 2/pi, glibc's reduce_large); for
@@ -21,12 +34,13 @@
 // Comparisons are written out as the plain code's torch.where / clamp,
 // so NaN propagates where it does there (fminf / fmaxf would drop it).
 //
-// What bounds it: the f64 pipe. An element moves 8 bytes; pow does 42
-// f64 operations (21 fma32) and about as many f32 <-> f64 conversions,
-// sin 13 to 23. Design: one thread per 4 elements with 16-byte loads and
-// stores where both pointers are 16-byte aligned (a contiguous tensor the
-// caching allocator hands out is), grid-stride, the op a template
-// parameter so each instantiation is straight-line code.
+// What bounds it: bytes, for log, log2, exp and pow (an element moves 8
+// bytes; pow does 20 FFMA, 6 FADD and 6 FMUL, exp 9, 1 and 2); sin does
+// 11 to 15 f64 operations and its two conversions. Design: one thread per
+// 4 elements with 16-byte loads and stores where both pointers are 16-byte
+// aligned (a contiguous tensor the caching allocator hands out is),
+// grid-stride, the op a template parameter so each instantiation is
+// straight-line code.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -68,12 +82,6 @@ constexpr float kExp0 = 0x1.a0d2cep-13f, kExp1 = 0x1.6e879cp-10f, kExp2 = 0x1.11
                 kExp3 = 0x1.555382p-5f, kExp4 = 0x1.555554p-3f;
 
 __device__ __forceinline__ float quiet_nan() { return __int_as_float(0x7fc00000); }
-
-// policy.fma32: a*b + c rounded once to f32 through an f64 sum.
-__device__ __forceinline__ float fma32(float a, float b, float c) {
-  return __double2float_rn(
-      __dadd_rn(__dmul_rn(static_cast<double>(a), static_cast<double>(b)), static_cast<double>(c)));
-}
 
 // policy.sinf32 (glibc's sinf).
 __device__ __forceinline__ float sin_mirror(float x) {
@@ -131,11 +139,11 @@ __device__ __forceinline__ float log_mirror(float x) {
   e = __fsub_rn(e, small ? 1.0f : 0.0f);
   const float z = __fmul_rn(xm, xm);
   const float x3 = __fmul_rn(z, xm);
-  const float y0 = fma32(fma32(xm, kLogA, kLogB), xm, kLogC);
-  const float y1 = fma32(fma32(xm, kLogD, kLogF), xm, kLogG);
-  const float y2 = fma32(fma32(xm, kLogH, kLogI), xm, kLogJ);
-  const float p = fma32(fma32(fma32(y0, x3, y1), x3, y2), x3, __fmul_rn(e, kLn2Lo));
-  float r = fma32(e, kLn2Hi, __fadd_rn(fma32(z, -0.5f, xm), p));
+  const float y0 = __fmaf_rn(__fmaf_rn(xm, kLogA, kLogB), xm, kLogC);
+  const float y1 = __fmaf_rn(__fmaf_rn(xm, kLogD, kLogF), xm, kLogG);
+  const float y2 = __fmaf_rn(__fmaf_rn(xm, kLogH, kLogI), xm, kLogJ);
+  const float p = __fmaf_rn(__fmaf_rn(__fmaf_rn(y0, x3, y1), x3, y2), x3, __fmul_rn(e, kLn2Lo));
+  float r = __fmaf_rn(e, kLn2Hi, __fadd_rn(__fmaf_rn(z, -0.5f, xm), p));
   if (!(x >= kFltMin)) r = quiet_nan();
   if (fabsf(x) < kFltMin) r = -INFINITY;
   if (x == INFINITY) r = INFINITY;
@@ -146,12 +154,12 @@ __device__ __forceinline__ float log_mirror(float x) {
 __device__ __forceinline__ float exp_mirror(float x) {
   x = x < kExpLo ? kExpLo : x;
   x = x > kExpHi ? kExpHi : x;
-  float fx = floorf(fma32(x, kLog2e, 0.5f));
+  float fx = floorf(__fmaf_rn(x, kLog2e, 0.5f));
   fx = fx < -127.0f ? -127.0f : fx;  // torch.clamp: NaN stays NaN
   fx = fx > 127.0f ? 127.0f : fx;
-  const float r = fma32(fx, -kLn2Lo, fma32(fx, -kLn2Hi, x));
-  const float p = fma32(fma32(fma32(fma32(fma32(r, kExp0, kExp1), r, kExp2), r, kExp3), r, kExp4), r, 0.5f);
-  const float y = __fadd_rn(fma32(p, __fmul_rn(r, r), r), 1.0f);
+  const float r = __fmaf_rn(fx, -kLn2Lo, __fmaf_rn(fx, -kLn2Hi, x));
+  const float p = __fmaf_rn(__fmaf_rn(__fmaf_rn(__fmaf_rn(__fmaf_rn(r, kExp0, kExp1), r, kExp2), r, kExp3), r, kExp4), r, 0.5f);
+  const float y = __fadd_rn(__fmaf_rn(p, __fmul_rn(r, r), r), 1.0f);
   const int n = isnan(fx) ? 0 : __float2int_rz(fx);  // nan_to_num(fx).to(int32); fx is integral in [-127, 127]
   const float out = __fmul_rn(y, __int_as_float((n + 127) << 23));
   return out < kFltMin ? 0.0f : out;  // a subnormal result flushes to zero

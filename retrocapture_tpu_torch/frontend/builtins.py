@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 from retrocapture_tpu_torch.frontend import tnp
-from retrocapture_tpu_torch.policy import bitcast, fma32
+from retrocapture_tpu_torch.ops.cuda.fma import fma32
+from retrocapture_tpu_torch.policy import bitcast
 from retrocapture_tpu_torch.frontend.values import (
     BOOL,
     FLOAT,

@@ -37,7 +37,8 @@ import numpy as np
 import torch
 
 from retrocapture_tpu_torch.ops.cuda import mirrors
-from retrocapture_tpu_torch.policy import fma32, fmaf32, unrecorded, upload, walk_program
+from retrocapture_tpu_torch.ops.cuda.fma import fma32, fmaf32
+from retrocapture_tpu_torch.policy import unrecorded, upload, walk_program
 
 __all__ = ["find_kernel"]
 

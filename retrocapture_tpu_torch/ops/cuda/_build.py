@@ -42,10 +42,12 @@ KERNELS = {
     "resample_xphase": ("resample_xphase_launch", [_P, _P] + [_P] * 7 + [_I] * 6 + [_P]),
     "xbr_epilogue": ("xbr_epilogue_launch", [_P] * 8 + [_I] * 7 + [_P]),
     "mirrors": ("mirrors_launch", [_P, _P, _L, _I, _F, _P]),
+    "fma": ("fma_launch", [_P, _P, _P, _F, _F, _F, _P, _I, _P, _I, _P]),
 }
-# nvcc flags of one source beyond NVCC_FLAGS: the mirrors' roundings are
-# all explicit, and no multiply-add may be contracted behind them.
-EXTRA_FLAGS = {"mirrors": ["-fmad=false"]}
+# nvcc flags of one source beyond NVCC_FLAGS: the mirrors' and the fma
+# operator's roundings are all explicit, and no multiply-add may be
+# contracted behind them.
+EXTRA_FLAGS = {"mirrors": ["-fmad=false"], "fma": ["-fmad=false"]}
 
 NVCC_FLAGS = [
     "-gencode",

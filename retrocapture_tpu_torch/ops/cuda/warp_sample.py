@@ -12,7 +12,9 @@ channel at a time, counted in ``general_launches()``.
 
 ``warp_sample`` launches the kernel for a CUDA tensor and takes the plain
 version (``sampling.sample2d_gather``, the reference's gather path) only
-for a CPU tensor. ``LAUNCHES`` counts kernel launches.
+for a CPU tensor. ``warp_sample_plain`` is that gather with its
+multiply-adds in plain torch, as the card's checks compare it.
+``LAUNCHES`` counts kernel launches.
 
 Both sit behind the operator ``rctpu::warp_sample`` (``torch.library``),
 whose batching rule is the reference's ``custom_vmap`` rule
@@ -26,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from retrocapture_tpu_torch import policy
 from retrocapture_tpu_torch.ops.sampling import sample2d_gather
 
 __all__ = ["warp_sample", "warp_sample_plain", "general_launches", "LAUNCHES"]
@@ -35,7 +38,12 @@ _GENERAL_LAUNCHES = 0
 
 _MODE = {"clamp_to_edge": 0, "clamp_to_border": 1, "repeat": 2, "mirrored_repeat": 3}
 
-warp_sample_plain = sample2d_gather
+
+def warp_sample_plain(tex, u, v, *, filter_linear: bool, wrap_mode: str = "clamp_to_edge"):
+    """The kernel's plain version: ``sampling.sample2d_gather`` with its
+    fused multiply-adds in plain torch (``policy.fmaf32``), not through the
+    ``rctpu::fma`` operator that the main paths' gathers take on a card."""
+    return sample2d_gather(tex, u, v, filter_linear=filter_linear, wrap_mode=wrap_mode, fmaf=policy.fmaf32)
 
 
 @torch.library.custom_op("rctpu::warp_sample", mutates_args=(), device_types="cuda")
@@ -79,6 +87,8 @@ def general_launches(reset: bool = False) -> int:
 
 @_warp_sample_op.register_kernel("cpu")
 def _warp_sample_cpu(tex, u, v, filter_linear, wrap_mode):
+    # The gather's multiply-adds through the operator, whose CPU kernel is
+    # policy's: the plain version's bits.
     return sample2d_gather(tex, u, v, filter_linear=filter_linear, wrap_mode=wrap_mode)
 
 

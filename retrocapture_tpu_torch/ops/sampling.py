@@ -38,7 +38,8 @@ import numpy as np
 import torch
 
 from retrocapture_tpu_torch.ops.cuda import mirrors
-from retrocapture_tpu_torch.policy import fma32, fmaf32, ifloor32, upload, walk_program
+from retrocapture_tpu_torch.ops.cuda.fma import fma32, fmaf32
+from retrocapture_tpu_torch.policy import ifloor32, upload, walk_program
 
 __all__ = [
     "sample2d",
@@ -469,7 +470,7 @@ def sample2d_separable(
     return torch.einsum("ws,hsc->hwc", ax, th).to(tex.dtype)
 
 
-def sample2d_gather(tex, u, v, *, filter_linear: bool, wrap_mode: str = "clamp_to_edge"):
+def sample2d_gather(tex, u, v, *, filter_linear: bool, wrap_mode: str = "clamp_to_edge", fmaf=None):
     """The plain gather form of a warped tap: ``tex [..., H, W, C]``
     sampled at per-pixel normalized ``u, v`` tensors of one shape S →
     ``[..., *S, C]``. This is the plain version of the CUDA warp kernel
@@ -477,10 +478,13 @@ def sample2d_gather(tex, u, v, *, filter_linear: bool, wrap_mode: str = "clamp_t
     (sampling.py:1200-1233) as its jitted gather rounds it on the CPU:
     the LINEAR tap position ``u*W - 0.5`` and the three lerps are
     fused multiply-adds (``fmaf32``: one rounding, as the kernel's
-    ``__fmaf_rn``)."""
+    ``__fmaf_rn``). ``fmaf`` computes them where given (the warp kernel's
+    plain version passes ``policy.fmaf32``); else the ``rctpu::fma``
+    operator does."""
+    fmaf = fmaf32 if fmaf is None else fmaf
     if tex.dim() == 4:
         return torch.stack(
-            [sample2d_gather(t, u, v, filter_linear=filter_linear, wrap_mode=wrap_mode) for t in tex]
+            [sample2d_gather(t, u, v, filter_linear=filter_linear, wrap_mode=wrap_mode, fmaf=fmaf) for t in tex]
         )
     h, w, _ = tex.shape
     if not filter_linear:
@@ -490,8 +494,8 @@ def sample2d_gather(tex, u, v, *, filter_linear: bool, wrap_mode: str = "clamp_t
         iy, vy = _wrap_index(iy, h, wrap_mode)
         return _gather(tex, iy, ix, vy, vx)
 
-    x = fmaf32(u, w, -0.5)
-    y = fmaf32(v, h, -0.5)
+    x = fmaf(u, w, -0.5)
+    y = fmaf(v, h, -0.5)
     fx = (x - torch.floor(x)).to(tex.dtype)
     fy = (y - torch.floor(y)).to(tex.dtype)
     x0 = ifloor32(x)
@@ -509,9 +513,9 @@ def sample2d_gather(tex, u, v, *, filter_linear: bool, wrap_mode: str = "clamp_t
 
     fx = fx[..., None]
     fy = fy[..., None]
-    top = fmaf32(t01 - t00, fx, t00)
-    bot = fmaf32(t11 - t10, fx, t10)
-    return fmaf32(bot - top, fy, top)
+    top = fmaf(t01 - t00, fx, t00)
+    bot = fmaf(t11 - t10, fx, t10)
+    return fmaf(bot - top, fy, top)
 
 
 def _box_downsample(tex):

@@ -34,8 +34,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from retrocapture_tpu_torch.ops.cuda.fma import fma32
 from retrocapture_tpu_torch.ops.sampling import sample2d
-from retrocapture_tpu_torch.policy import fma32
 from retrocapture_tpu_torch.runtime.engine import Engine, _grids
 from retrocapture_tpu_torch.utils.metrics import FrameStats
 

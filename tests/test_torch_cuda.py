@@ -18,9 +18,11 @@ from _mattias_standin import write_standin
 from _nnedi3_standin import write_chain as write_nnedi3_chain
 from _ntsc_standin import write_chain as write_ntsc_chain
 from _xbr_standin import write_standin as write_xbr_standin
+from retrocapture_tpu_torch import policy
 from retrocapture_tpu_torch.graph import kernels as tk
 from retrocapture_tpu_torch.graph.kernels import mattias_groups, mattias_uv
 from retrocapture_tpu_torch.ops.cuda import blur_groups as bg
+from retrocapture_tpu_torch.ops.cuda import fma as fm
 from retrocapture_tpu_torch.ops.cuda import mirrors as mr
 from retrocapture_tpu_torch.ops.cuda import resample as rs
 from retrocapture_tpu_torch.ops.cuda import warp_sample as ws
@@ -1024,3 +1026,159 @@ def test_mirror_call_sites_bit_equal_to_the_plain_path(cuda_device, tmp_path, mo
     for key, outs in runs.items():
         for got, want in zip(outs, runs["plain", "0"]):
             assert _same_bits(got, want), key
+
+
+# -- the contracted multiply-add operator (csrc/fma.cu) ----------------------
+
+FMA_MODES = {"fma32": (fm.fma32, policy.fma32), "fmaf32": (fm.fmaf32, policy.fmaf32)}
+
+
+def _fma_edges(dev):
+    """Every triple of NaN, +-inf, +-0, subnormals, FLT_MAX and a few
+    normals, and the tie triple with c = +-2^-80."""
+    vals = torch.tensor([0.0, -0.0, float("inf"), -float("inf"), float("nan"), 1.0, -1.0, 3.4028235e38,
+                         -3.4028235e38, 1.1754944e-38, 1e-45, -1e-45, 2.5e-39, 0.5, 3.0], device=dev)
+    a, b, c = (t.reshape(-1) for t in torch.meshgrid(vals, vals, vals, indexing="ij"))
+    tie = torch.full((2,), 1 + 2.0**-12, device=dev)
+    return (torch.cat([a, tie]), torch.cat([b, tie]), torch.cat([c, torch.tensor([2.0**-80, -2.0**-80], device=dev)]))
+
+
+@pytest.mark.parametrize("mode", list(FMA_MODES))
+def test_fma_kernel_equals_plain(cuda_device, mode):
+    """2^24 random bit-pattern triples and the edges: bit-equal to the plain
+    version on the card off the NaNs, NaN where it is; the tie triple's
+    modes differ for c = +2^-80 alone."""
+    op, plain = FMA_MODES[mode]
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(31)
+    a, b, c = (torch.randint(-2**31, 2**31 - 1, (1 << 24,), generator=g, device=cuda_device, dtype=torch.int32)
+               .view(torch.float32) for _ in range(3))
+    before = fm.LAUNCHES
+    for x, y, z in ((a, b, c), _fma_edges(cuda_device)):
+        assert _same_bits(op(x, y, z), plain(x, y, z)), mode
+    assert fm.LAUNCHES == before + 2
+    x, y, z = (t[-2:] for t in _fma_edges(cuda_device))
+    assert (fm.fma32(x, y, z) != fm.fmaf32(x, y, z)).tolist() == [True, False]
+
+
+@pytest.mark.parametrize("mode", list(FMA_MODES))
+def test_fma_kernel_broadcast_forms(cuda_device, mode):
+    """Every operand form of the call sites on the card: a scalar in each
+    position, 0-d tensors (one at a storage offset), [H, W, 1] against
+    [H, W, 3], an expanded view, a strided channel, a transposed view, an
+    operand 4 bytes off a 16-byte boundary (the dense path without 16-byte
+    accesses), odd sizes: bit-equal to plain, the output contiguous."""
+    op, plain = FMA_MODES[mode]
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(32)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device)
+
+    hw3, hw1 = r(61, 77, 3), r(61, 77, 1)
+    flat = r(61 * 77 * 3 + 1)
+    forms = [
+        (0.92, hw3, r(61, 77, 3)), (hw3, 0.4, r(61, 77, 3)), (hw3, r(61, 77, 3), -0.25), (hw3, 12.9898, 1.0),
+        (r(2)[1], hw3, 1.0), (r(61, 77), 1620.0, torch.tensor(0.123, device=cuda_device)),
+        (hw1, r(61, 77, 3), hw3), (r(1, 77, 3).expand(61, 77, 3), hw1.expand(61, 77, 3), hw3),
+        (r(61, 77, 3)[..., 2], 0.299, r(61, 77, 3)[..., 0]), (r(4, 61, 77), 0.5, r(4, 1, 1)),
+        (r(5, 1, 3), r(4, 1), r(3)), (r(77, 61).t(), r(61, 77), r(61, 1)),
+        (flat[1:].view(61, 77, 3), hw3, flat[:-1].view(61, 77, 3)), (r(1000003), r(1000003), 0.5),
+    ]
+    for k, (a, b, c) in enumerate(forms):
+        got = op(a, b, c)
+        want = plain(a, b, c)
+        assert got.shape == want.shape and got.is_contiguous(), k
+        assert _same_bits(got, want), (mode, k)
+
+
+@pytest.mark.parametrize("mode", list(FMA_MODES))
+def test_fma_kernel_under_vmap(cuda_device, mode):
+    """The batch on a, b or c alone and on all three, at differing in_dims and
+    logical ranks: one launch a call, the bits of a loop over the batch."""
+    op, plain = FMA_MODES[mode]
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(33)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device)
+
+    B = 6
+    cases = [((r(B, 3), r(40, 50, 3), r(40, 50, 3)), (0, None, None)),
+             ((r(40, 50, 3), r(3, B), 0.5), (None, 1, None)),
+             ((r(40, 50), 1620.0, r(B)), (None, None, 0)),
+             ((r(40, B, 50, 3), r(50, 1, B), r(B)), (1, 2, 0))]
+    for operands, dims in cases:
+        before = fm.LAUNCHES
+        got = torch.func.vmap(op, in_dims=dims)(*operands)
+        assert fm.LAUNCHES == before + 1
+        want = torch.stack([plain(*(x if d is None else x.select(d, i) for x, d in zip(operands, dims)))
+                            for i in range(B)])
+        assert _same_bits(got, want), dims
+
+
+def test_fma_kernel_graph_replay_reads_a_rewritten_scalar(cuda_device):
+    """fma32 and fmaf32 with 0-d operands captured into a CUDA graph: each
+    replay reads the 0-d buffers' values of its time (as a traced parameter
+    or FrameCount is rewritten between applies), with no launch call."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(34)
+    x = torch.rand((3, 257, 65), generator=g, device=cuda_device)
+    s = torch.tensor(0.8, device=cuda_device)
+    t = torch.tensor(1.5, device=cuda_device)
+
+    def run():
+        return fm.fma32(x, s, t), fm.fmaf32(t, x[..., :1], x), fm.fma32(x[0], 1620.0, s)
+
+    run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = run()
+    for k in range(3):
+        s.fill_(0.1 * k - 0.3)
+        t.fill_(2.0 ** -k)
+        x.copy_(torch.rand(x.shape, generator=g, device=cuda_device))
+        before = fm.LAUNCHES
+        graph.replay()
+        assert fm.LAUNCHES == before
+        torch.cuda.synchronize()
+        for got, plain_args, fn in zip(outs, ((x, s, t), (t, x[..., :1], x), (x[0], 1620.0, s)),
+                                       (policy.fma32, policy.fmaf32, policy.fma32)):
+            assert _same_bits(got, fn(*plain_args)), k
+
+
+def test_fma_kernel_refuses_a_cpu_operand(cuda_device):
+    """A CPU tensor beside CUDA operands (even a 0-d one, which torch would
+    take) and another dtype raise; nothing is launched."""
+    x = torch.zeros(8, device=cuda_device)
+    before = fm.LAUNCHES
+    with pytest.raises(TypeError):
+        fm.fma32(x, torch.tensor(2.0), 1.0)
+    with pytest.raises(TypeError):
+        fm.fmaf32(x, x.double(), 1.0)
+    assert fm.LAUNCHES == before
+
+
+def test_fma_kernel_refuses_2_to_the_31_elements(cuda_device):
+    """The kernel indexes in 32 bits: a result of 2^31 elements (expanded
+    views, nothing allocated) raises before anything is launched."""
+    x = torch.zeros(1, device=cuda_device).expand(1 << 16, 1 << 15)
+    before = fm.LAUNCHES
+    with pytest.raises(ValueError, match="elements"):
+        fm.fma32(x, 2.0, 1.0)
+    assert fm.LAUNCHES == before
+
+
+@pytest.mark.parametrize("op", ["sin", "log", "log2", "exp", "pow"])
+def test_mirror_kernel_exponent_bytes(cuda_device, op):
+    """The mirror kernel over every pattern of each exponent byte where its
+    arithmetic changes course (subnormals, around 1.0, sin's 120, exp's
+    clamps, inf and NaN): 2^24 patterns a byte, bit-equal to the plain
+    version; the pow at 0.45."""
+    c = float(np.float32(np.float32(np.float32(0.45) * np.float32(1.0 / np.log(2.0))) * np.float32(np.log(2.0))))
+    for byte in (0x00, 0x01, 0x66, 0x7D, 0x7E, 0x7F, 0x80, 0x85, 0x86, 0xFE, 0xFF):
+        m = torch.arange(1 << 23, dtype=torch.int32, device=cuda_device) | (byte << 23)
+        x = torch.cat([m, m | torch.iinfo(torch.int32).min]).view(torch.float32)
+        assert _same_bits(mr._mirror(x, op, c), mr.mirror_plain(x, op, c)), (op, hex(byte))
