@@ -27,13 +27,15 @@ of sin, log, log2 and exp and a sample of each pow against the plain
 versions, and its main-path calls timed; from phase 5 to 25 no plain mirror
 may run on the card), then the multiply-add operator ``rctpu::fma``
 (phase 27: random bit patterns, the edges, the tie triple, every broadcast
-form, vmap and a graph replay against ``policy.fma32`` / ``fmaf32``, and
+form on both routes, vmap and a graph replay against ``policy.fma32`` /
+``fmaf32``, and
 its main-path calls timed; from phase 5 to 25 no plain ``fma32`` or
 ``fmaf32`` may run on the card but in the xbr epilogue's plain tail),
 compares them with the port's own CPU run, counts the work that left
 shared memory for global (the blur kernel's wide tiles, the blit's and the
 xbr epilogue's general-path units, the warp kernel's channel-at-a-time
-launches: none may at the main paths' geometries), and times the kernels
+launches, the fma kernel's general-path launches: none may at the main
+paths' geometries), and times the kernels
 (device time per launch from CUDA events around it, and per call through
 the wrapper) against their plain versions
 (device time from torch.profiler),
@@ -1471,19 +1473,28 @@ def _library_slice(gen, Engine, phase, label, path, names, batch, passes, varian
     check(int(e._states[(h, w) + VIEWPORT].frame_count) == 3 * batch, f"{label}: frame count not carried")
     check(float(out.float().std()) > 5.0, f"{label}: a flat output")
     res = {}
+
+    def run(name, vpath, d):
+        ev = Engine(viewport=VIEWPORT, device=d)
+        check(ev.load_preset(str(vpath)), f"{name} {d}: load_preset: {ev.last_error}")
+        with engaged(names) as vcalls:
+            n = VARIANT_BATCH if (d != "cpu" and name != label) else 2
+            o = ev.apply(frames[:n].to(d), output="u8")
+        _engine_ok(ev, f"{name} {d}")
+        want = walks_an_apply(ev, n) * passes
+        check(vcalls == {"engaged": want, "declined": 0}, f"{name} {d}: entries {vcalls}, want {want}")
+        return o[:2].cpu()
+
     for name, vpath, dev in [(label, path, DEV)] + [(n, vp, DEV) for n, vp in variants]:
-        outs = []
-        for d in (dev, "cpu"):
-            ev = Engine(viewport=VIEWPORT, device=d)
-            check(ev.load_preset(str(vpath)), f"{name} {d}: load_preset: {ev.last_error}")
-            with engaged(names) as vcalls:
-                n = VARIANT_BATCH if (d != "cpu" and name != label) else 2
-                o = ev.apply(frames[:n].to(d), output="u8")
-            _engine_ok(ev, f"{name} {d}")
-            want = walks_an_apply(ev, n) * passes
-            check(vcalls == {"engaged": want, "declined": 0}, f"{name} {d}: entries {vcalls}, want {want}")
-            outs.append(o[:2].cpu())
-        res[name] = _cmp_u8(outs[0], outs[1], f"{name} cuda vs cpu")
+        outs = [run(name, vpath, d) for d in (dev, "cpu")]
+        try:
+            res[name] = _cmp_u8(outs[0], outs[1], f"{name} cuda vs cpu")
+        except SmokeFailure as err:
+            # Still a failure; say whether each side gives its bits again.
+            again = [run(name, vpath, d) for d in (dev, "cpu")]
+            raise SmokeFailure(f"{err}; run again: cuda {'the same' if torch.equal(again[0], outs[0]) else 'other'} "
+                               f"bits, cpu {'the same' if torch.equal(again[1], outs[1]) else 'other'} bits, again "
+                               f"max |d| {int((again[0].int() - again[1].int()).abs().max())}") from err
     say(phase, f"{label} {batch}x{h}x{w} rgb -> {vh}x{vw} u8, 3 applies: ok (entries engaged {calls['engaged']}: "
         f"{walks} walk(s) an apply, {passes} passes; "
         f"blit from {blits[0][1:3]}, resample_u8 launches {launches}, general-path units {general}; cuda vs cpu on 2 "
@@ -1594,7 +1605,7 @@ _OPS = {
     "blur_groups_v2": ("blur_groups", "_blur_groups_op"),
     "xbr_epilogue": ("xbr_epilogue", "_xbr_epilogue_op"),
     "mirrors": ("mirrors", "_mirror_op"),
-    "fma": ("fma", "_fma_op"),
+    "fma": ("fma", "_fma_call"),  # both routes, the direct launch and the operator
 }
 
 
@@ -1745,6 +1756,17 @@ def phase_replay(gen, Engine, tmp, card):
         replays = rp.replay_stats()["replays"] - replays0
         check(replays == (batch if temporal else 1), f"23 {name}: {replays} graph replays in an apply of {batch}, "
               f"want {batch if temporal else 1}")
+        # A profiler window was seen to lose a few of a graph's kernel
+        # records (fma: 6 of ntsc-320px's 8, once in many windows): a short
+        # count is profiled again (PROFILE_TRIES windows in all), and each
+        # kernel keeps its largest count. A window never adds a record.
+        for attempt in range(1, PROFILE_TRIES):
+            if runs == per_apply:
+                break
+            say("23", f"{name}: torch.profiler saw {runs} in replayed apply window {attempt}, the walk launches "
+                f"{per_apply}: profiled again")
+            again = kernel_runs(lambda: rp.apply(frames[0], output="u8"))
+            runs = {k: max(n, again[k]) for k, n in runs.items()}
         check(runs == per_apply, f"23 {name}: a replayed apply ran {runs} on the device, the walk launches {per_apply}")
         graph_runs = {k: runs[k] - calls[k] for k in runs}
         check(calls["resample_u8"] == 1 and sum(calls.values()) == 1,
@@ -2190,32 +2212,6 @@ def fma_bound(args, out):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-@contextlib.contextmanager
-def fma_call(keep):
-    """Keep, of the launches of ``rctpu::fma`` in a block (the batched calls,
-    as ``launched`` records them), the arguments of the one that
-    ``keep(args, kept)`` prefers to the one kept so far (``kept`` None at
-    first). Yields a one-element list that holds them at the end."""
-    import torch
-
-    from retrocapture_tpu_torch.ops.cuda import fma as fm
-
-    orig = fm._fma_op
-    kept = [None]
-
-    def rec(*args):
-        if not any(isinstance(a, torch.Tensor) and torch._C._functorch.is_batchedtensor(a) for a in args):
-            if keep(args, kept[0]):
-                kept[0] = args
-        return orig(*args)
-
-    fm._fma_op = rec
-    try:
-        yield kept
-    finally:
-        fm._fma_op = orig
-
-
 def fma_graph_replay(gen, wrappers, plains, held):
     """The fma operator with 0-d operands captured into a CUDA graph and
     replayed 3 times, the 0-d buffers and the tensor operand rewritten
@@ -2254,6 +2250,74 @@ def fma_graph_replay(gen, wrappers, plains, held):
     torch.cuda.empty_cache()
 
 
+def fma_args(ops):
+    """The operator's arguments (a, b, c, sa, sb, sc) of operands as the
+    public wrappers take them."""
+    from retrocapture_tpu_torch.ops.cuda import fma as fm
+
+    (ta, sa), (tb, sb), (tc, sc) = (fm._operand(x, n) for x, n in zip(ops, "abc"))
+    return ta, tb, tc, sa, sb, sc
+
+
+@contextlib.contextmanager
+def fma_forms(tag=lambda: False):
+    """Record, for the duration of a block, each distinct operand form of the
+    launches of ``rctpu::fma`` (the calls its batching rule makes with the
+    whole batch, as ``launched`` records them; both routes pass through
+    ``fma._fma_call``): {(each operand's shape and strides, mode):
+    [launches, the first launch's arguments, the first launch's arguments
+    while ``tag()`` held or None]}."""
+    import torch
+
+    from retrocapture_tpu_torch.ops.cuda import fma as fm
+
+    orig = fm._fma_call
+    forms = {}
+
+    def rec(*args):
+        if not any(isinstance(a, torch.Tensor) and torch._C._functorch.is_batchedtensor(a) for a in args):
+            key = tuple(None if x is None else (tuple(x.shape), x.stride()) for x in args[:3]) + (args[6],)
+            form = forms.setdefault(key, [0, args, None])
+            form[0] += 1
+            if form[2] is None and tag():
+                form[2] = args
+        return orig(*args)
+
+    fm._fma_call = rec
+    try:
+        yield forms
+    finally:
+        fm._fma_call = orig
+
+
+def fma_form_name(args):
+    """fma32/fmaf32 of the operand shapes (``view``: not contiguous), the
+    kernel's path and each operand's kind, as the launch plan has them."""
+    from retrocapture_tpu_torch.ops.cuda import fma as fm
+
+    plan = fm._plan(args[:3])
+    nd = plan.geometry[1]
+    kinds = "/".join(fm.KIND_NAMES[plan.geometry[2 + nd + k]] for k in range(3))
+    forms = ", ".join("scalar" if x is None else f"{list(x.shape)}{'' if x.is_contiguous() else ' view'}"
+                      for x in args[:3])
+    return f"{'fma32' if args[6] == 0 else 'fmaf32'}({forms}) -> {list(plan.shape)}, {fm.PATH_NAMES[plan.path]} {kinds}"
+
+
+def host_us(fn, calls=2000):
+    """Host microseconds a call of fn over ``calls`` calls, the device
+    drained before and not waited for inside."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
 def phase_fma(gen, Engine, tmp, card):
     """Phase 27, the multiply-add operator ``rctpu::fma`` (csrc/fma.cu)
     against ``policy.fma32`` and ``policy.fmaf32`` on the card:
@@ -2265,16 +2329,24 @@ def phase_fma(gen, Engine, tmp, card):
       the plain version gives NaN;
     * every operand form the call sites pass (a scalar in each position,
       0-d tensors, [H, W, 1] against [H, W, 3], expanded, strided and
-      transposed views, an operand off a 16-byte boundary), under
-      ``torch.func.vmap`` with the batch on a, b or c alone and on all
-      three (one launch each), and a CUDA graph replayed with its 0-d
-      operands rewritten between replays (the replay reads the new values);
+      transposed views, an operand off a 16-byte boundary, and the main
+      paths' forms: a weight a row [H, 1, 1], a column [1, W, 1], a channel
+      vector [4] against a transposed operand, the same off a 16-byte
+      boundary, ``a is b``, a transposed three-channel operand, and a 4-D
+      form that takes the general path), on both routes: the public
+      wrapper's direct launch (no call of the operator) and the operator
+      ``rctpu::fma`` through the dispatcher; under ``torch.func.vmap``
+      with the batch on a, b or c alone and on all three (one launch
+      each), and a CUDA graph replayed with its 0-d operands rewritten
+      between replays (the replay reads the new values);
     * the kernel at the main paths' own calls, recorded in walked applies:
-      feedback-ghost's ``mix`` (the north star's pass) and crt-mattias's
-      largest epilogue call, bit-equal to the plain version on the same
-      operands and timed in turns beside it, with their bound and
-      ``torch.addcmul`` on the same operands (the same bytes; not the same
-      bits for fma32).
+      each form feedback-ghost launches (the north star's pass; its
+      ``mix`` among them) and crt-mattias's largest epilogue call,
+      bit-equal to the plain version on the same operands and timed in
+      turns beside it, with their bound and ``torch.addcmul`` on the same
+      operands (the same bytes; not the same bits for fma32);
+    * host microseconds a call of ``fma.fma32`` and of ``policy.fma32`` at
+      [120, 160, 3], in turns (printed, not checked).
 
     Returns ({call: its numbers}, the largest absolute difference from
     plain over all it compared)."""
@@ -2323,20 +2395,43 @@ def phase_fma(gen, Engine, tmp, card):
         return torch.randn(shape, generator=gen, device=DEV)
 
     hw3, hw1, flat = r(vh, vw, 3), r(vh, vw, 1), r(vh * vw * 3 + 1)
+    hw4, flat4 = r(vh, vw, 4), r(vh * vw * 4 + 1)
     forms = [
         (0.92, hw3, r(vh, vw, 3)), (hw3, 0.4, r(vh, vw, 3)), (hw3, r(vh, vw, 3), -0.25), (hw3, 12.9898, 1.0),
         (r(2)[1], hw3, 1.0), (r(vh, vw), 1620.0, torch.tensor(0.123, device=DEV)), (hw1, r(vh, vw, 3), hw3),
         (r(1, vw, 3).expand(vh, vw, 3), hw1.expand(vh, vw, 3), hw3), (r(vh, vw, 3)[..., 2], 0.299, r(vh, vw, 3)[..., 0]),
         (r(8, vh, vw), 0.5, r(8, 1, 1)), (r(vw, vh).t(), r(vh, vw), r(vh, 1)),
         (flat[1:].view(vh, vw, 3), hw3, flat[:-1].view(vh, vw, 3)),
+        # The main paths' forms (PERF.md section 4).
+        (hw4, r(vh, 1, 1), r(vh, vw, 4)), (hw4, r(1, vw, 1), r(vh, vw, 4)), (hw4, r(4), r(vw, vh, 4).transpose(0, 1)),
+        (flat4[1:].view(vh, vw, 4), r(4), r(vw, vh, 4).transpose(0, 1)), (hw4, hw4, 0.5),
+        (r(vw, vh, 3).transpose(0, 1), 1.1, -0.5), (r(3, 5, 7, 9), r(3, 1, 7, 1), r(5, 1, 9)),
     ]
-    for k, (a, b, c) in enumerate(forms):
-        for mode in (0, 1):
-            got = wrappers[mode](a, b, c)
-            # The kernel writes a contiguous result (a CPU run's plain version
-            # may keep an operand's layout).
-            check(got.is_contiguous() or got.device.type == "cpu", f"27 fma mode {mode}: form {k} not contiguous")
-            held(got, plains[mode](a, b, c), f"27 fma mode {mode}: broadcast form {k} not bit-equal to plain")
+    real_op = fm._fma_op
+    op_calls = [0]
+
+    def counted_op(*args):
+        op_calls[0] += 1
+        return real_op(*args)
+
+    general = fm.general_launches()
+    fm._fma_op = counted_op
+    try:
+        for k, (a, b, c) in enumerate(forms):
+            for mode in (0, 1):
+                want = plains[mode](a, b, c)
+                got = wrappers[mode](a, b, c)
+                check(op_calls[0] == 0, f"27 fma mode {mode}: form {k} went through the operator on a plain call")
+                routed = real_op(*fma_args((a, b, c)), mode)
+                # The kernel writes a contiguous result (a CPU run's plain
+                # version may keep an operand's layout).
+                check(got.is_contiguous() or got.device.type == "cpu", f"27 fma mode {mode}: form {k} not contiguous")
+                held(got, want, f"27 fma mode {mode}: broadcast form {k} not bit-equal to plain (direct launch)")
+                held(routed, want, f"27 fma mode {mode}: broadcast form {k} not bit-equal to plain (the operator)")
+    finally:
+        fm._fma_op = real_op
+    general = fm.general_launches() - general
+    check(general == 4, f"27 fma: {general} launches of the forms took the general path, want the 4-D form's 4")
     B = 8
     cases = [((r(B, 3), hw3, r(vh, vw, 3)), (0, None, None)), ((hw3, r(3, B), 0.5), (None, 1, None)),
              ((r(vh, vw), 1620.0, r(B)), (None, None, 0)), ((r(vh, B, vw, 3), r(vw, 1, B), r(B)), (1, 2, 0))]
@@ -2348,12 +2443,13 @@ def phase_fma(gen, Engine, tmp, card):
             want = torch.stack([plains[mode](*(x if d is None else x.select(d, i) for x, d in zip(operands, dims)))
                                 for i in range(B)])
             held(got, want, f"27 fma mode {mode}: vmap with in_dims {dims} not bit-equal to a loop")
-    del forms, cases, hw3, hw1, flat, got, want
+    del forms, cases, hw3, hw1, hw4, flat, flat4, got, want, routed
     fma_graph_replay(gen, wrappers, plains, held)
     say("27", f"rctpu::fma vs policy.fma32 / fmaf32: {FMA_SAMPLE} random bit-pattern triples a mode, "
-        f"{edges[0].numel()} edge triples, the tie triple (fma32 {t32}, fmaf32 {tf}), 12 broadcast forms, 4 vmap "
-        "cases (one launch each), a CUDA graph replayed 3 times with its 0-d operands rewritten: bit-equal off the "
-        f"NaNs, NaN where plain gives NaN ({time.perf_counter() - t0:.1f} s)")
+        f"{edges[0].numel()} edge triples, the tie triple (fma32 {t32}, fmaf32 {tf}), 19 broadcast forms on both "
+        "routes (the direct launch and the operator; the 4-D form's 4 launches on the general path), 4 vmap cases "
+        "(one launch each), a CUDA graph replayed 3 times with its 0-d operands rewritten: bit-equal off the NaNs, "
+        f"NaN where plain gives NaN ({time.perf_counter() - t0:.1f} s)")
 
     # The main paths' calls, recorded in walked applies.
     h, w = SRC_HW
@@ -2367,60 +2463,74 @@ def phase_fma(gen, Engine, tmp, card):
         finally:
             in_mix.pop()
 
-    def first_mix(args, kept):
-        return kept is None and bool(in_mix)
-
     def call_bytes(a):
         out = torch.broadcast_shapes(*(x.shape for x in a[:3] if x is not None)).numel()
         return sum(own_bytes(x) for x in a[:3] if x is not None) + 4 * out
 
-    def largest(args, kept):
-        return kept is None or call_bytes(args) > call_bytes(kept)
+    def measure(name, args):
+        a, b, c, sa, sb, sc, mode = args
+        operands = [sv if x is None else x for x, sv in ((a, sa), (b, sb), (c, sc))]
+        got, want = fm._fma_call(*args), fm.fma_plain(*operands, mode)
+        torch.cuda.synchronize()
+        held(got, want, f"27 {name}: the kernel is not bit-equal to plain on the call's operands")
+        b_ms, b_by = fma_bound(args, got)
+        # The plain version by CUDA events around its calls: a profiler
+        # window over its few large passes was seen to keep a tenth of
+        # their records.
+        plain_ms, k_ms = in_turns(lambda: fm.fma_plain(*operands, mode), lambda: fm._fma_call(*args), 10, event_ms,
+                                  kernel_timer=launch_timer("fma"))
+        ta, tb, tc = (x if isinstance(x, torch.Tensor) else torch.tensor(x, device=DEV) for x in operands)
+        lib_ms = _product_ms(lambda: torch.addcmul(tc, ta, tb), 10)
+        call = fma_form_name(args)
+        say("27", f"{name}: {call}: bit-equal to plain; kernel {k_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}, {100 * b_ms / k_ms:.1f}%), torch.addcmul {lib_ms:.4f} ms  ({card})")
+        return {"call": call, "ms": k_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": lib_ms}
 
-    paths = {
-        "feedback-ghost mix": (PRESET, "nv12", 2, first_mix),
-        "crt-mattias epilogue": (write_standin(tmp), "rgb", MATTIAS_BATCH, largest),
-    }
     results = {}
     builtins._mix = tagged_mix
     try:
-        for name, (path, fmt, batch, keep) in paths.items():
+        for name, (path, fmt, batch) in {"feedback-ghost": (PRESET, "nv12", 2),
+                                         "crt-mattias epilogue": (write_standin(tmp), "rgb", MATTIAS_BATCH)}.items():
             shape = (batch, h * 3 // 2, w) if fmt == "nv12" else (batch, h, w, 3)
             frames = torch.randint(0, 256, shape, generator=gen, device=DEV, dtype=torch.uint8)
             e = Engine(viewport=VIEWPORT, device=DEV)
             check(e.load_preset(str(path)), f"27 {name}: load_preset: {e.last_error}")
             e.set_input_format(fmt)
-            with env(RCTPU_REPLAY="0"), fma_call(keep) as kept:
-                e.apply(frames, output="u8")
+            with env(RCTPU_REPLAY="0"):
+                e.apply(frames, output="u8")  # the first walk also builds what the program keeps
+                with fma_forms(tag=lambda: bool(in_mix)) as seen:
+                    e.apply(frames, output="u8")
             _engine_ok(e, f"27 {name}")
-            check(kept[0] is not None, f"27 {name}: the walk made no such call of rctpu::fma")
-            args = kept[0]
-            del e, frames, kept
+            check(seen, f"27 {name}: the walk made no call of rctpu::fma")
+            del e, frames
             torch.cuda.empty_cache()
-            a, b, c, sa, sb, sc, mode = args
-            operands = [sv if x is None else x for x, sv in ((a, sa), (b, sb), (c, sc))]
-            got, want = fm._fma_op(*args), fm.fma_plain(*operands, mode)
-            torch.cuda.synchronize()
-            held(got, want, f"27 {name}: the kernel is not bit-equal to plain on the call's operands")
-            b_ms, b_by = fma_bound(args, got)
-            # The plain version by CUDA events around its calls: a profiler
-            # window over its few large passes was seen to keep a tenth of
-            # their records.
-            plain_ms, k_ms = in_turns(lambda: fm.fma_plain(*operands, mode), lambda: fm._fma_op(*args), 10, event_ms,
-                                      kernel_timer=launch_timer("fma"))
-            ta, tb, tc = (x if isinstance(x, torch.Tensor) else torch.tensor(x, device=DEV) for x in operands)
-            lib_ms = _product_ms(lambda: torch.addcmul(tc, ta, tb), 10)
-            forms = ", ".join("scalar" if x is None else f"{list(x.shape)}{'' if x.is_contiguous() else ' view'}"
-                              for x in (a, b, c))
-            call = f"{'fma32' if mode == 0 else 'fmaf32'}({forms}) -> {list(got.shape)}"
-            results[name] = {"call": call, "ms": k_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                             "library_ms": lib_ms}
-            say("27", f"{name}: {call}: bit-equal to plain; kernel {k_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-                f"{b_ms:.4f} ms ({b_by}), torch.addcmul {lib_ms:.4f} ms  ({card})")
-            del args, a, b, c, operands, got, want, ta, tb, tc
+            if fmt == "nv12":
+                mixes = [m for _, _, m in seen.values() if m is not None]
+                check(mixes, "27 feedback-ghost: the walk's mix made no call of rctpu::fma")
+                mix_row = measure("feedback-ghost mix", mixes[0])
+                results["feedback-ghost forms"] = []
+                for n, args, m in seen.values():
+                    row = dict(mix_row) if m is mixes[0] else measure(
+                        f"feedback-ghost, {n / batch:g} a frame", args)
+                    row["per_frame"] = n / batch
+                    results["feedback-ghost forms"].append(row)
+            else:
+                results[name] = measure(name, max((args for _, args, _ in seen.values()), key=call_bytes))
+            del seen
             torch.cuda.empty_cache()
     finally:
         builtins._mix = mix
+
+    # Host time a call: the operator's direct route against policy's passes.
+    x = torch.rand((120, 160, 3), generator=gen, device=DEV)
+    sides = {"fma.fma32": lambda: fm.fma32(x, 1.1, -0.5), "policy.fma32": lambda: policy.fma32(x, 1.1, -0.5)}
+    turns = {k: [] for k in sides}
+    for k in ("fma.fma32", "policy.fma32", "policy.fma32", "fma.fma32"):
+        turns[k].append(host_us(sides[k]))
+    results["host_us"] = {k: sum(v) / len(v) for k, v in turns.items()}
+    say("27", f"host microseconds a call at [120, 160, 3], in turns: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in results["host_us"].items()) + f"  ({card})")
     return results, worst[0]
 
 
@@ -2592,6 +2702,7 @@ def main() -> int:
     fm.LAUNCHES = 0
     rs.general_blocks(reset=True)
     ws.general_launches(reset=True)
+    fm.general_launches(reset=True)
     eng, nv12 = phase_slice(gen, Engine)
     slice_launches = rs.LAUNCHES
     with tempfile.TemporaryDirectory() as td:
@@ -2867,14 +2978,16 @@ def main() -> int:
         batched = phase_batched(gen, Engine, Path(td), card)
         ws_general += ws.general_launches(reset=True)
         check(ws_general == 0, f"main paths: {ws_general} warp_sample launches took the general path")
+        fma_general = fm.general_launches(reset=True)
+        check(fma_general == 0, f"main paths: {fma_general} rctpu::fma launches took the general path")
         mirror_bypass.close()
         check(not bypass, f"a plain mirror ran on the card {len(bypass)} times ({sorted(set(bypass))}): a call site "
               "bypasses the mirror kernel")
         check(not fma_bypass, f"a plain fma ran on the card {len(fma_bypass)} times "
               f"({ {c: fma_bypass.count(c) for c in sorted(set(fma_bypass))} }): a call site bypasses the fma kernel")
         say("5-25", f"main paths: warp_sample general-path launches {ws_general} (the preconv option's single-channel "
-            f"textures: {preconv_general}); plain mirror calls on the card {len(bypass)}; plain fma32/fmaf32 calls "
-            f"on the card {len(fma_bypass)}")
+            f"textures: {preconv_general}); rctpu::fma general-path launches {fma_general}; plain mirror calls on the "
+            f"card {len(bypass)}; plain fma32/fmaf32 calls on the card {len(fma_bypass)}")
 
         # Phase 26: the numerics mirrors' kernel against its plain version.
         mirror_sweep, mirror_calls, mirror_err = phase_mirrors(gen, Engine, Path(td), card)
@@ -2947,14 +3060,18 @@ def main() -> int:
         {k: mirror_calls["nnedi3"][k] for k in ("call", "ms", "plain_ms", "bound_ms", "bound_by")}]
     kernels[-1]["sweep"] = mirror_sweep
     # The multiply-add operator at crt-mattias's largest epilogue call,
-    # feedback-ghost's mix beside it; library_ms torch.addcmul on the same
-    # operands (the same bytes, not fma32's bits).
+    # each of feedback-ghost's call forms (its mix among them) beside it;
+    # library_ms torch.addcmul on the same operands (the same bytes, not
+    # fma32's bits).
     fc = fma_calls["crt-mattias epilogue"]
     kernels.append(entry("fma", "fma.cu", FMA_REPLACE, launches["fma"], fma_err, fc["ms"], fc["plain_ms"], "fma",
                          fc["library_ms"]))
     kernels[-1]["call"] = fc["call"]
     kernels[-1]["other_shapes"] = [
-        {k: fma_calls["feedback-ghost mix"][k] for k in ("call", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}]
+        {k: row[k] for k in ("call", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        for row in fma_calls["feedback-ghost forms"]]
+    kernels[-1]["general_path_launches"] = fma_general
+    kernels[-1]["host_us_a_call"] = fma_calls["host_us"]
     # Beside the keys every entry has: the blit at its other two timed
     # shapes, and the general-path counts of the main paths (checked 0).
     kernels[0]["other_shapes"] = [

@@ -1067,7 +1067,9 @@ def test_fma_kernel_broadcast_forms(cuda_device, mode):
     position, 0-d tensors (one at a storage offset), [H, W, 1] against
     [H, W, 3], an expanded view, a strided channel, a transposed view, an
     operand 4 bytes off a 16-byte boundary (the dense path without 16-byte
-    accesses), odd sizes: bit-equal to plain, the output contiguous."""
+    accesses), odd sizes, the main paths' tile-path forms and a 4-D form
+    (the general path), on both routes (the wrapper's direct launch and
+    the operator): bit-equal to plain, the output contiguous."""
     op, plain = FMA_MODES[mode]
     g = torch.Generator(device=cuda_device)
     g.manual_seed(32)
@@ -1075,8 +1077,8 @@ def test_fma_kernel_broadcast_forms(cuda_device, mode):
     def r(*shape):
         return torch.randn(shape, generator=g, device=cuda_device)
 
-    hw3, hw1 = r(61, 77, 3), r(61, 77, 1)
-    flat = r(61 * 77 * 3 + 1)
+    hw3, hw1, hw4 = r(61, 77, 3), r(61, 77, 1), r(61, 77, 4)
+    flat, flat4 = r(61 * 77 * 3 + 1), r(61 * 77 * 4 + 1)
     forms = [
         (0.92, hw3, r(61, 77, 3)), (hw3, 0.4, r(61, 77, 3)), (hw3, r(61, 77, 3), -0.25), (hw3, 12.9898, 1.0),
         (r(2)[1], hw3, 1.0), (r(61, 77), 1620.0, torch.tensor(0.123, device=cuda_device)),
@@ -1084,12 +1086,23 @@ def test_fma_kernel_broadcast_forms(cuda_device, mode):
         (r(61, 77, 3)[..., 2], 0.299, r(61, 77, 3)[..., 0]), (r(4, 61, 77), 0.5, r(4, 1, 1)),
         (r(5, 1, 3), r(4, 1), r(3)), (r(77, 61).t(), r(61, 77), r(61, 1)),
         (flat[1:].view(61, 77, 3), hw3, flat[:-1].view(61, 77, 3)), (r(1000003), r(1000003), 0.5),
+        # The main paths' forms: a weight a row and a column, a channel
+        # vector against a transposed operand (and off a 16-byte boundary),
+        # a is b, a transposed three-channel operand, a folded strided
+        # channel; and a 4-D form, the general path's.
+        (hw4, r(61, 1, 1), r(61, 77, 4)), (hw4, r(1, 77, 1), r(61, 77, 4)), (hw4, r(4), r(77, 61, 4).transpose(0, 1)),
+        (flat4[1:].view(61, 77, 4), r(4), r(77, 61, 4).transpose(0, 1)), (hw4, hw4, 0.5),
+        (r(77, 61, 3).transpose(0, 1), 1.1, -0.5), (r(1000003 * 3)[::3], 0.5, r(1000003)),
+        (r(3, 5, 7, 9), r(3, 1, 7, 1), r(5, 1, 9)),
     ]
+    general = fm.general_launches()
     for k, (a, b, c) in enumerate(forms):
-        got = op(a, b, c)
         want = plain(a, b, c)
-        assert got.shape == want.shape and got.is_contiguous(), k
-        assert _same_bits(got, want), (mode, k)
+        (ta, sa), (tb, sb), (tc, sc) = (fm._operand(x, n) for x, n in zip((a, b, c), "abc"))
+        for got in (op(a, b, c), fm._fma_op(ta, tb, tc, sa, sb, sc, 0 if mode == "fma32" else 1)):
+            assert got.shape == want.shape and got.is_contiguous(), k
+            assert _same_bits(got, want), (mode, k)
+    assert fm.general_launches() - general == 2  # the 4-D form, on both routes
 
 
 @pytest.mark.parametrize("mode", list(FMA_MODES))
@@ -1159,6 +1172,79 @@ def test_fma_kernel_refuses_a_cpu_operand(cuda_device):
     with pytest.raises(TypeError):
         fm.fmaf32(x, x.double(), 1.0)
     assert fm.LAUNCHES == before
+
+
+def test_fma_kernel_random_forms(cuda_device):
+    """2000 random operand forms of 1 to 5 dimensions (scalars, 0-d tensors,
+    broadcast, transposed, strided and offset views, one view in two
+    places), each through the kernel's raw entry with its launch plan, into
+    a result with guard words on both sides (16-byte aligned or not):
+    bit-equal to plain, nothing written outside the result or into an
+    operand, every path taken."""
+    import random
+
+    from retrocapture_tpu_torch.ops.cuda import _build
+
+    fn = _build.load("fma")
+    rnd = random.Random(5)
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(36)
+
+    def r(shape):
+        return torch.randn(shape, generator=g, device=cuda_device)
+
+    def operand(shape):
+        kind = rnd.choice(["value", "zero_d", "full", "bcast", "bcast", "short", "transposed", "sliced", "offset"])
+        s = list(shape)
+        if kind == "value":
+            return rnd.choice([0.5, -1.25, 3.0])
+        if kind == "zero_d":
+            return r(())
+        if kind == "bcast":
+            s = [1 if rnd.random() < 0.5 else n for n in s]
+        if kind == "short":
+            s = s[rnd.randint(0, len(s)):]
+        if kind == "transposed" and len(s) >= 2:
+            i, j = rnd.sample(range(len(s)), 2)
+            t = s[:]
+            t[i], t[j] = t[j], t[i]
+            return r(t).transpose(i, j)
+        if kind == "sliced" and s:
+            return r(s[:-1] + [2 * s[-1] + 1])[..., 1::2][..., :s[-1]]
+        if kind == "offset":
+            return r(int(np.prod(s)) + 1)[1:].view(s)
+        return r(s)
+
+    paths = {fm.DENSE: 0, fm.TILE: 0, fm.GENERAL: 0}
+    for trial in range(2000):
+        nd = rnd.randint(1, 5)
+        shape = [rnd.choice([1, 2, 3, 4, 5, 7, 8, 16, 31, 33, 64, 100, 257]) for _ in range(nd)]
+        if nd == 4 and rnd.random() < 0.6:
+            shape[3] = rnd.randint(1, 4)
+        while int(np.prod(shape)) > 1 << 20:
+            shape[rnd.randrange(nd)] = rnd.choice([1, 2, 3, 4, 5, 7])
+        ops = [operand(shape) for _ in range(3)]
+        if rnd.random() < 0.1:
+            ops[2] = ops[0]
+        if not any(isinstance(x, torch.Tensor) for x in ops):
+            ops[0] = r(shape)
+        tensors = [x if isinstance(x, torch.Tensor) else None for x in ops]
+        values = [0.0 if t is not None else float(np.float32(x)) for x, t in zip(ops, tensors)]
+        mode = rnd.randint(0, 1)
+        plan = fm._plan(tensors)
+        paths[plan.path] += 1
+        guard = rnd.choice([64, 65])
+        buf = torch.full((plan.numel + 2 * guard,), 7.0, device=cuda_device)
+        out = buf[guard:guard + plan.numel]
+        before = [t.clone() for t in tensors if t is not None]
+        rc = fn(*(None if t is None else t.data_ptr() for t in tensors), *values, out.data_ptr(), plan.path,
+                plan.geometry, mode, torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert rc == 0, (trial, shape)
+        assert bool((buf[:guard] == 7.0).all()) and bool((buf[guard + plan.numel:] == 7.0).all()), (trial, shape)
+        assert all(torch.equal(a, t) for a, t in zip(before, [t for t in tensors if t is not None])), (trial, shape)
+        assert _same_bits(out, fm.fma_plain(*ops, mode).reshape(-1)), (trial, shape, list(plan.geometry))
+    assert all(paths.values()), paths
 
 
 def test_fma_kernel_refuses_2_to_the_31_elements(cuda_device):

@@ -13,8 +13,14 @@ the host is checked here too: the merged geometry addresses every operand
 of every broadcast form the call sites use, and the batching rule lines the
 batch up in front of the result's logical dimensions (against a Python
 loop over the batch, with no vmap fallback). The routing test holds the
-four modules that call it to the operator. The kernel itself is held to
-the plain versions on the card (tests/test_torch_cuda.py, chip_smoke.py).
+four modules that call it to the operator. The launch plan: its cache, the
+kernel path and operand kinds it picks for every form the main paths
+launch (a pure function of shapes and strides), and the addresses each
+path reads and writes for them; and the route a call takes (a direct
+launch on a plain call with CUDA tensors, the operator under a fake tensor
+mode, vmap and opcheck), with fake CUDA tensors. The kernel itself is held
+to the plain versions on the card (tests/test_torch_cuda.py,
+chip_smoke.py).
 """
 
 import tempfile
@@ -197,6 +203,8 @@ def _forms():
         ("per-frame column", r(4, 6, 7), 0.5, r(4, 1, 1)),
         ("three shapes", r(5, 1, 3), r(4, 1), r(3)),
         ("transposed", r(7, 6).t(), r(6, 7), r(6, 1)),
+        ("four dimensions", r(3, 5, 7, 2), r(3, 1, 7, 1), r(5, 1, 2)),
+        ("five dimensions", r(2, 3, 5, 7, 2), r(2, 1, 5, 1, 2), r(3, 1, 7, 1)),
     ]
 
 
@@ -437,3 +445,217 @@ def test_slices_call_no_plain_fma_outside_the_operator(monkeypatch):
             assert e.shader_active is True and e.last_error is None
             assert ops[0] > before, path
     assert outside == []
+
+
+# -- the launch plan: its cache, the kernel's paths, and the two routes -------
+
+
+def _strided(shape, strides):
+    """A CPU tensor of random values laid out with ``strides``."""
+    g = torch.Generator().manual_seed(sum(shape) + sum(strides))
+    size = 1 + sum((n - 1) * s for n, s in zip(shape, strides))
+    return torch.as_strided(torch.randn(size, generator=g), shape, strides)
+
+
+# The operand forms of the main paths' launches (tools/torch_fma_forms.py,
+# walked on the CPU at 192x108 from 60x80 sources; PERF.md section 4):
+# (name, operands as (shape, strides) or a scalar, the kernel's path, the
+# operands' kinds).
+K = fm
+RECORDED = [
+    ("feedback-ghost row weight", (((108, 192, 4), (768, 4, 1)), ((108, 1, 1), (1, 1, 1)), ((108, 192, 4), (768, 4, 1))),
+     K.TILE, (K.LINE, K.ROW, K.LINE)),
+    ("feedback-ghost column weight",
+     (((108, 192, 4), (768, 4, 1)), ((1, 192, 1), (192, 1, 1)), ((108, 192, 4), (768, 4, 1))),
+     K.TILE, (K.LINE, K.COL, K.LINE)),
+    ("feedback-ghost mix", (((108, 192, 4), (768, 4, 1)), ((4,), (1,)), ((108, 192, 4), (4, 432, 1))),
+     K.TILE, (K.LINE, K.COL, K.TILE_OP)),
+    ("feedback-ghost mix, traced", (((108, 192, 4), (768, 4, 1)), ((4,), (0,)), ((108, 192, 4), (4, 432, 1))),
+     K.TILE, (K.LINE, K.SCALAR, K.TILE_OP)),
+    ("xbr-lv2 channel", (((2, 108, 84), (27216, 252, 3)), 0.5, ((2, 108, 84), (9072, 84, 1))),
+     K.TILE, (K.GATHER, K.VALUE, K.LINE)),
+    ("ntsc dense", (((1, 60, 320), (19200, 320, 1)), 0.5, ((1, 60, 320), (19200, 320, 1))),
+     K.DENSE, (K.DENSE_OP, K.VALUE, K.DENSE_OP)),
+    ("crt-mattias col, col, -col",
+     (((2, 108, 192, 3), (62208, 576, 3, 1)),) * 3, K.DENSE, (K.DENSE_OP,) * 3),
+    ("crt-mattias 0-d b", (((108, 192), (192, 1)), ((), ()), ((108, 192), (192, 1))),
+     K.DENSE, (K.DENSE_OP, K.SCALAR, K.DENSE_OP)),
+    ("crt-mattias scan", (((108, 192), (192, 1)), 0.5, ((2, 1, 1), (1, 1, 1))), K.TILE, (K.COL, K.VALUE, K.ROW)),
+    ("crt-mattias padded rows", (((2, 108, 192), (20737, 192, 1)), 0.15, 0.35), K.TILE, (K.LINE, K.VALUE, K.VALUE)),
+    ("crt-mattias strided pair", (((2,), (20737,)), 0.5, 0.25), K.TILE, (K.GATHER, K.VALUE, K.VALUE)),
+    ("warp-curve pixel weight",
+     (((108, 192, 4), (768, 4, 1)), ((108, 192, 1), (192, 1, 1)), ((108, 192, 4), (768, 4, 1))),
+     K.TILE, (K.LINE, K.GATHER, K.LINE)),
+    ("warp-curve coordinates", (((108, 192, 2), (384, 2, 1)), ((108, 192, 2), (192, 1, 0)), ((2,), (0,))),
+     K.TILE, (K.LINE, K.GATHER, K.SCALAR)),
+    ("warp-curve channel", (((108, 192), (384, 2)), 0.5, 0.25), K.TILE, (K.GATHER, K.VALUE, K.VALUE)),
+    ("FramePipeline brightness", (((108, 144, 3), (3, 324, 1)), 1.1, -0.5), K.TILE, (K.TILE_OP, K.VALUE, K.VALUE)),
+    ("FramePipeline ghost mix", (((60, 80, 4), (320, 4, 1)), ((4,), (1,)), ((60, 80, 4), (320, 4, 1))),
+     K.TILE, (K.LINE, K.COL, K.LINE)),
+    ("apply_streams ghost row weight",
+     (((4, 108, 192, 4), (82944, 768, 4, 1)), ((108, 1, 1), (1, 1, 1)), ((4, 108, 192, 4), (82944, 768, 4, 1))),
+     K.TILE, (K.LINE, K.ROW, K.LINE)),
+    ("mip-glow batched pair, one transposed view",
+     (((4, 72, 96, 4), (27648, 4, 288, 1)), 0.5, ((4, 72, 96, 4), (27648, 4, 288, 1))),
+     K.TILE, (K.TILE_OP, K.VALUE, K.TILE_OP)),
+    ("apply_streams ghost mix",
+     (((4, 108, 192, 4), (82944, 768, 4, 1)), ((4,), (1,)), ((4, 108, 192, 4), (82944, 4, 432, 1))),
+     K.TILE, (K.LINE, K.COL, K.TILE_OP)),
+]
+FORMS_RECORDED = {f[0]: f[1:] for f in RECORDED}
+
+
+def _recorded_operands(form):
+    ops = []
+    for x in FORMS_RECORDED[form][0]:
+        ops.append(_strided(*x) if isinstance(x, tuple) else x)
+    return ops
+
+
+@pytest.mark.parametrize("form", list(FORMS_RECORDED))
+def test_classification_of_recorded_forms(form):
+    """The path and operand kinds the host picks for each form the main
+    paths launch, as a pure function of shapes and strides: every one takes
+    the dense or the tile path, none the general one."""
+    _, path, kinds = FORMS_RECORDED[form]
+    ops = _recorded_operands(form)
+    tensors = [x if isinstance(x, torch.Tensor) else None for x in ops]
+    shape = torch.broadcast_shapes(*(t.shape for t in tensors if t is not None))
+    sizes, strides = fm._geometry(tuple(shape), tensors)
+    got_path, dims, got_kinds, _ = fm._classify(sizes, strides, [t is not None for t in tensors])
+    assert (got_path, tuple(got_kinds)) == (path, kinds), form
+    if path == fm.TILE:
+        assert len(dims) == 4 and 1 <= dims[3] <= 4
+
+
+def _addresses(plan, k):
+    """The result's element indices and operand k's element offsets that the
+    kernel's path reads for them, for every element it writes (csrc/fma.cu:
+    the dense path reads a dense operand at the element's index; the
+    general path at the sum of the element's coordinates times the
+    strides; the tile path reads operand k at r * sr + q * sq + c * sc of pixel (r, q),
+    channel c, where its kind allows, and writes element (r * Q + q) * C + c
+    where that is below n)."""
+    g = list(plan.geometry)
+    n, nd = g[0], g[1]
+    dims, kinds, st = g[2:2 + nd], g[2 + nd:5 + nd], g[5 + nd + nd * k:5 + nd + nd * (k + 1)]
+    if plan.path == fm.DENSE:
+        e = np.arange(n)
+        return e, e * st[0]
+    if plan.path == fm.GENERAL:
+        coords = np.meshgrid(*(np.arange(d) for d in dims), indexing="ij")
+        return np.arange(n), sum(x.ravel() * s for x, s in zip(coords, st)) if nd else np.zeros(1, np.int64)
+    z, r, q, c = np.meshgrid(*(np.arange(d) for d in dims), indexing="ij")
+    B, R, Q, C = dims
+    e = z * (n // B) + (r * Q + q) * C + c
+    keep = (r * Q + q) * C + c < n // B
+    sb, sr, sq, sc = st
+    kind = kinds[k]
+    # What each kind's loads assume of its strides.
+    if kind == fm.LINE:
+        assert sq == C and (sc == 1 or C == 1)
+    elif kind == fm.ROW:
+        assert sq == 0 and (sc == 0 or C == 1)
+    elif kind == fm.COL:
+        assert sr == 0
+    elif kind == fm.TILE_OP:
+        assert sr == C and (sc == 1 or C == 1)
+    return e[keep], (z * sb + r * sr + q * sq + c * sc)[keep]
+
+
+@pytest.mark.parametrize("form", list(FORMS_RECORDED) + list(FORMS))
+def test_plan_addresses_every_element_once(form):
+    """For every recorded form and every broadcast form of the call sites:
+    the launch plan's path (dense, tile or general) writes each element of
+    the result once, and reads
+    each tensor operand (from its storage offset, through the strides its
+    kind uses) as the operand broadcast to the result."""
+    ops = _recorded_operands(form) if form in FORMS_RECORDED else FORMS[form]
+    tensors = [x if isinstance(x, torch.Tensor) else None for x in ops]
+    plan = fm._plan(tensors)
+    shape = torch.broadcast_shapes(*(t.shape for t in tensors if t is not None))
+    for k, t in enumerate(tensors):
+        e, addr = _addresses(plan, k)
+        assert np.array_equal(np.sort(e), np.arange(plan.numel)), form
+        if t is None:
+            continue
+        storage = torch.as_strided(t, (int(addr.max()) + 1,), (1,), t.storage_offset())
+        want = t.expand(shape).reshape(-1)[torch.from_numpy(e)]
+        assert torch.equal(storage[torch.from_numpy(addr)], want), (form, k)
+
+
+def test_plan_cache_hits_and_keys():
+    """A cached plan is what a fresh merge and classification give; a second
+    call with operands of the same shapes and strides hits it; two views of
+    one shape with different strides never share an entry."""
+    x = torch.randn(6, 7, 4)
+    t = torch.randn(7, 6, 4).transpose(0, 1)
+    w = torch.randn(4)
+    fm._PLANS.clear()
+    plan = fm._plan((x, w, t))
+    assert fm._plan((torch.randn(6, 7, 4), torch.randn(4), torch.randn(7, 6, 4).transpose(0, 1))) is plan
+    sizes, strides = fm._geometry((6, 7, 4), (x, w, t))
+    path, dims, kinds, st = fm._classify(sizes, strides, [True, True, True])
+    assert (plan.path, list(plan.geometry)) == (path, [6 * 7 * 4, len(dims), *dims, *kinds, *st[0], *st[1], *st[2]])
+    other = fm._plan((x, w, x))
+    assert other is not plan and list(other.geometry) != list(plan.geometry)
+    assert fm._plan((t, w, x)) is not fm._plan((x, w, t))
+    assert fm._plan((x, None, t)) is not fm._plan((x, torch.tensor(1.0), t))
+    assert len(fm._PLANS) == 5
+
+
+def _fake_cuda(*shape):
+    """A tensor that says it lies on a card, with no card: a fake tensor
+    made under FakeTensorMode."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    mode = FakeTensorMode()
+    with mode:
+        return torch.empty(shape, device="cuda"), mode
+
+
+def test_route_direct_on_a_plain_call(monkeypatch):
+    """A plain call on CUDA tensors launches without the dispatcher; a CPU
+    tensor takes the operator (its CPU kernel, the plain version)."""
+    t, _ = _fake_cuda(5, 7, 4)
+    assert fm._direct((t, None, None)) and fm._direct((None, t, t))
+    assert not fm._direct((torch.zeros(3), None, None))
+    launched, routed = [], []
+    monkeypatch.setattr(fm, "_launch", lambda *a: launched.append(a) or "launched")
+    real_op = fm._fma_op
+    monkeypatch.setattr(fm, "_fma_op", lambda *a: routed.append(a) or real_op(*a))
+    assert fm.fma32(t, 1.5, -0.25) == "launched" and len(launched) == 1 and routed == []
+    fm.fma32(torch.zeros(3), 1.5, -0.25)
+    assert len(routed) == 1 and len(launched) == 1
+
+
+def test_route_is_the_operator_under_fake_tensors_and_vmap(monkeypatch, no_vmap_fallback):
+    """Under FakeTensorMode (a dispatch mode) the call goes through the
+    operator, whose fake kernel gives the result's shape without a launch;
+    under torch.func.vmap the batched call does too, and its batching rule
+    makes one call of the batch through ``_fma_call``."""
+    t, mode = _fake_cuda(5, 7, 4)
+    monkeypatch.setattr(fm, "_launch", lambda *a: pytest.fail("launched under a dispatch mode"))
+    with mode:
+        assert not fm._direct((t, None, None))
+        out = fm.fma32(t, torch.empty(4, device="cuda"), 0.5)
+    assert out.shape == (5, 7, 4) and out.device.type == "cuda"
+    decisions = []
+    real_direct = fm._direct
+    monkeypatch.setattr(fm, "_direct", lambda ts: decisions.append(real_direct(ts)) or decisions[-1])
+    calls = []
+    real_call = fm._fma_call
+    monkeypatch.setattr(fm, "_fma_call", lambda *a: calls.append(a) or real_call(*a))
+    x = torch.randn(3, 5, 4)
+    got = torch.func.vmap(fm.fma32, in_dims=(0, None, None))(x, 1.5, torch.randn(4))
+    assert decisions[0] is False and len(calls) == 2 and got.shape == (3, 5, 4)
+    assert not any(torch._C._functorch.is_batchedtensor(a) for a in calls[1] if isinstance(a, torch.Tensor))
+
+
+def test_opcheck_on_the_kernel_paths():
+    """Schema, fake tensor and dispatch checks of ``rctpu::fma`` on operands
+    of the tile path's forms (a row weight, a transposed operand)."""
+    g = torch.Generator().manual_seed(19)
+    a, t = torch.randn(6, 8, 4, generator=g), torch.randn(8, 6, 4, generator=g).transpose(0, 1)
+    torch.library.opcheck(fm._fma_op, (a, torch.randn(6, 1, 1, generator=g), a, 0.0, 0.0, 0.0, 0))
+    torch.library.opcheck(fm._fma_op, (a, torch.randn(4, generator=g), t, 0.0, 0.0, 0.0, 1))

@@ -3,15 +3,25 @@
 
     python3 tools/torch_fma_host_cost.py    (needs an NVIDIA GPU and nvcc)
 
-The operator saves device time and bytes, but each call goes through
-``torch.library``'s dispatcher and a ctypes launch, where ``policy.fma32``
-enqueues a few eager torch passes. This measures both sides:
+The kernel saves device time and bytes, but each call costs host time,
+where ``policy.fma32`` enqueues a few eager torch passes. This measures
+both sides:
 
 * host microseconds a call, with no synchronize in the loop, of
-  ``fma.fma32`` (the public wrapper), ``fma._fma_op`` (the operator alone)
-  and ``fma._launch`` (the launch alone, no dispatcher), against
-  ``policy.fma32``, on a small operand ([120, 160, 3]: the device is not the
-  limit) and on the FramePipeline blit's ([1080, 1440, 3]);
+  ``fma.fma32`` (the public wrapper: its direct route on a plain call),
+  ``fma._fma_op`` (the operator, through ``torch.library``'s dispatcher)
+  and ``fma._launch`` (the launch alone), against ``policy.fma32``, on a
+  small operand ([120, 160, 3]: the device is not the limit) and on the
+  FramePipeline blit's ([1080, 1440, 3]);
+* the split of one call at [120, 160, 3] into its parts, each timed alone
+  over many calls: the ``_operand`` checks, the route predicate, the
+  launch plan's cache lookup, what a miss costs (``torch.broadcast_shapes``,
+  ``_geometry``, ``_classify``), ``torch.empty``, the stream query (the raw
+  query the wrapper uses, and ``torch.cuda.current_stream(dev).cuda_stream``),
+  the ctypes call of the kernel's entry (its launch included) and the
+  dispatcher (the operator less ``_launch``); and the same dispatcher cost
+  of the mirror operator ``rctpu::mirror`` (``mirrors._mirror_op`` less
+  ``mirrors._launch``, at the same shape);
 * ``FramePipeline.process`` of 32 frames, as chip_smoke.py's phase 16
   builds it (feedback-ghost at 160x120, brightness 1.1, contrast 0.9,
   flip-Y, a pillarboxed 1920x1080 window), with a synchronize, in turns:
@@ -63,6 +73,51 @@ def host_us(fn, calls=CALLS):
     dt = time.perf_counter() - t0
     torch.cuda.synchronize()
     return dt / calls * 1e6
+
+
+def split_table():
+    """Host microseconds of each part of one ``fma.fma32(x, 1.1, -0.5)`` call
+    at [120, 160, 3], each timed alone (median of ROUNDS)."""
+    from retrocapture_tpu_torch.ops.cuda import _build
+    from retrocapture_tpu_torch.ops.cuda import mirrors as mr
+
+    x = torch.rand((120, 160, 3), device=DEV)
+    ops = (x, None, None)
+    shape = tuple(x.shape)
+    plan = fm._plan(ops)
+    sizes, strides = fm._geometry(shape, ops)
+    fn = _build.load("fma")
+    out = torch.empty(plan.shape, device=DEV)
+    dev = x.device
+    raw = torch._C._cuda_getCurrentRawStream
+    stream = raw(dev.index)
+    parts = {
+        "_operand checks": lambda: (fm._operand(x, "a"), fm._operand(1.1, "b"), fm._operand(-0.5, "c")),
+        "route predicate": lambda: fm._direct(ops),
+        "plan cache lookup": lambda: fm._plan(ops),
+        "torch.broadcast_shapes (a plan miss)": lambda: torch.broadcast_shapes(x.shape),
+        "_geometry (a plan miss)": lambda: fm._geometry(shape, ops),
+        "_classify (a plan miss)": lambda: fm._classify(sizes, strides, [True, False, False]),
+        "torch.empty": lambda: torch.empty(plan.shape, dtype=torch.float32, device=dev),
+        "stream, raw query": lambda: raw(dev.index),
+        "stream, torch.cuda.current_stream(dev).cuda_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "ctypes call and launch": lambda: fn(x.data_ptr(), None, None, 0.0, 1.1, -0.5, out.data_ptr(), plan.path,
+                                             plan.geometry, 0, stream),
+        "fma._launch": lambda: fm._launch(x, None, None, 0.0, 1.1, -0.5, 0),
+        "fma._fma_op": lambda: fm._fma_op(x, None, None, 0.0, 1.1, -0.5, 0),
+        "fma.fma32": lambda: fm.fma32(x, 1.1, -0.5),
+        "mirrors._launch": lambda: mr._launch(x, "sin", 0.0),
+        "mirrors._mirror_op": lambda: mr._mirror_op(x, "sin", 0.0),
+    }
+    rounds = {k: [] for k in parts}
+    for _ in range(ROUNDS):
+        for k, f in parts.items():
+            rounds[k].append(host_us(f))
+    out_us = {k: sorted(v)[len(v) // 2] for k, v in rounds.items()}
+    out_us["dispatcher (fma._fma_op less fma._launch)"] = out_us["fma._fma_op"] - out_us["fma._launch"]
+    out_us["mirror dispatcher (mirrors._mirror_op less mirrors._launch)"] = (
+        out_us["mirrors._mirror_op"] - out_us["mirrors._launch"])
+    return out_us
 
 
 def calls_table():
@@ -136,7 +191,8 @@ def process_table():
 def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
-    result = {"card": card, "host_us_a_call": calls_table(), "framepipeline_process_32": process_table()}
+    result = {"card": card, "host_us_a_call": calls_table(), "split_us_120x160x3": split_table(),
+              "framepipeline_process_32": process_table()}
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "fma_host_cost.json").write_text(json.dumps(result, indent=1))
