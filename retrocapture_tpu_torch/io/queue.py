@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from retrocapture_tpu_torch.policy import to_device
+from retrocapture_tpu_torch.utils.trace import span
 
 __all__ = ["FrameQueue", "DeviceFeeder", "DeviceReadback", "stream"]
 
@@ -127,12 +128,17 @@ class DeviceFeeder:
             self._copied = [None, None]  # the event of the last upload out of each buffer
 
     def put(self, batch: np.ndarray) -> torch.Tensor:
+        with span("rctpu.queue.upload"):
+            return self._put(batch)
+
+    def _put(self, batch: np.ndarray) -> torch.Tensor:
         if self.device.type != "cuda":
             return to_device(batch, self.device)
         host = to_device(batch, "cpu")
         i, buf = self._pinned.next(host.shape, host.dtype)
         if self._copied[i] is not None:
-            self._copied[i].synchronize()  # the upload that last read this buffer is done
+            with span("rctpu.queue.upload_wait"):
+                self._copied[i].synchronize()  # the upload that last read this buffer is done
         buf.copy_(host)
         compute = torch.cuda.current_stream(self.device)
         with torch.cuda.stream(self._stream):
@@ -180,17 +186,27 @@ class DeviceReadback:
     def _finish(prev) -> np.ndarray:
         host, done = prev
         if done is None:
-            return host.numpy()
-        done.synchronize()
-        return host.numpy().copy()
+            with span("rctpu.queue.copy_out"):
+                return host.numpy()
+        with span("rctpu.queue.readback_wait"):
+            done.synchronize()
+        with span("rctpu.queue.copy_out"):
+            return host.numpy().copy()
 
     def submit(self, device_array: torch.Tensor) -> Optional[np.ndarray]:
-        prev, self._prev = self._prev, self._start(device_array)
-        return None if prev is None else self._finish(prev)
+        with span("rctpu.queue.readback"):
+            prev, self._prev = self._prev, self._start(device_array)
+            return None if prev is None else self._finish(prev)
 
     def flush(self) -> Optional[np.ndarray]:
-        prev, self._prev = self._prev, None
-        return None if prev is None else self._finish(prev)
+        with span("rctpu.queue.readback"):
+            prev, self._prev = self._prev, None
+            return None if prev is None else self._finish(prev)
+
+
+def _stack(frames: list) -> np.ndarray:
+    with span("rctpu.queue.stack"):
+        return np.stack(frames)
 
 
 def stream(
@@ -209,12 +225,12 @@ def stream(
     for f in source_frames:
         buf.append(f)
         if len(buf) == batch:
-            out = readback.submit(process(feeder.put(np.stack(buf))))
+            out = readback.submit(process(feeder.put(_stack(buf))))
             buf.clear()
             if out is not None:
                 yield from out
     if buf:
-        out = readback.submit(process(feeder.put(np.stack(buf))))
+        out = readback.submit(process(feeder.put(_stack(buf))))
         if out is not None:
             yield from out
     tail = readback.flush()

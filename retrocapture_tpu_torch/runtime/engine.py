@@ -79,6 +79,7 @@ from retrocapture_tpu_torch.policy import unrecorded, walk_program
 from retrocapture_tpu_torch.presets.glslp import Preset
 from retrocapture_tpu_torch.runtime import replay
 from retrocapture_tpu_torch.utils.logging import get_logger
+from retrocapture_tpu_torch.utils.trace import span
 
 __all__ = ["Engine", "MAX_FRAME_HISTORY", "chain_state_from_numpy"]
 
@@ -409,6 +410,10 @@ class Engine:
         frame from the same state."""
         if output not in ("f32", "u8"):
             raise ValueError(f"unknown output {output!r}")
+        with span("rctpu.engine.apply"):
+            return self._apply(frames, output)
+
+    def _apply(self, frames, output: str):
         arr = self._upload(frames)
         packed = self._input_format != "rgb"
         if not packed and arr.dim() == 5:
@@ -433,7 +438,7 @@ class Engine:
             out, new_state = self._run_batch(key, arr, state, fc_static=fc_static)
         except _LOWERING_ERRORS as e:
             if self._traced_fallback(e):
-                return self.apply(frames, output=output)
+                return self._apply(frames, output)
             self._lowering_failure(e)
             out = self._passthrough_out(arr, packed, vw, vh, output)
             return out if batched else out[0]
@@ -498,9 +503,13 @@ class Engine:
         failure and passes through); the blit runs outside that retreat,
         so a blit kernel that refuses its input or fails to build or
         launch raises."""
+        with span("rctpu.engine.apply_u8"):
+            return self._apply_u8(frames)
+
+    def _apply_u8(self, frames) -> np.ndarray:
         arr = self._upload(frames)
         if self._program is None or self._lowering_failed or arr.dim() not in (3, 4):
-            return _quantize_u8(self.apply(arr)).cpu().numpy()
+            return _readback(_quantize_u8(self.apply(arr)))
         batched = arr.dim() == 4
         if not batched:
             arr = arr[None]
@@ -511,9 +520,9 @@ class Engine:
             state = self._get_state(key, seed_source=self._history_seed(key, arr, False))
             out, new_state = self._run_batch(key, arr, state)
         except _LOWERING_ERRORS:
-            return _quantize_u8(self.apply(frames)).cpu().numpy()
+            return _readback(_quantize_u8(self.apply(frames)))
         self._commit(key, new_state, arr.shape[0])
-        out = _finalize(out, vw, vh, True).cpu().numpy()
+        out = _readback(_finalize(out, vw, vh, True))
         return out if batched else out[0]
 
     # -- internals ------------------------------------------------------
@@ -547,7 +556,8 @@ class Engine:
                     f"frames are on {frames.device}, the engine on {self.device}"
                 )
             return frames
-        return to_device(np.asarray(frames), self.device)
+        with span("rctpu.engine.upload"):
+            return to_device(np.asarray(frames), self.device)
 
     def _passthrough_out(self, arr, packed: bool, vw: int, vh: int, output: str):
         src = self._to_rgba_float(self._convert_packed(arr) if packed else arr)
@@ -673,35 +683,55 @@ class Engine:
         frame count as a host integer in concrete-FrameCount mode, else
         None. ``streams``: the batch is S streams of T frames, stream after
         stream, and ``state`` holds one state per stream (apply_streams)."""
-        h, w, vw, vh = key
-        prog = self._program
-        pw, ph = self._clamped_source(w, h)
-        shapes = compute_chain_shapes(
-            prog.preset, pw, ph, vw, vh, max_resolution=self._max_resolution
-        )
-        params = self._walk_params()
-        temporal = prog.uses_history() or prog.uses_feedback()
-        # Chain input sits on the k/255 grid only when it is raw u8 RGB
-        # with no packed-format convert and no pre-resize (both produce
-        # off-grid floats).
-        src_quant = (
-            raw_b.dtype == torch.uint8 and self._input_format == "rgb" and (pw, ph) == (w, h)
-        )
-        if self._input_format != "rgb":
-            raw_b = self._convert_packed(raw_b)
-        src_b = Engine._to_rgba_float(raw_b)
-        if (pw, ph) != (w, h):
-            u, v = _grids(pw, ph)
-            src_b = torch.stack([sample2d(t, u, v, filter_linear=True) for t in src_b])
-        nb = src_b.shape[0]
-
-        def single(src, hist, fb, fc, tm):
-            return _run_chain_impl(
-                prog, shapes, (vw, vh), src, hist, fb, fc, tm, params,
-                blit=False, source_quantized=src_quant,
+        with span("rctpu.engine.prepare"):
+            h, w, vw, vh = key
+            prog = self._program
+            pw, ph = self._clamped_source(w, h)
+            shapes = compute_chain_shapes(
+                prog.preset, pw, ph, vw, vh, max_resolution=self._max_resolution
             )
+            params = self._walk_params()
+            temporal = prog.uses_history() or prog.uses_feedback()
+            # Chain input sits on the k/255 grid only when it is raw u8 RGB
+            # with no packed-format convert and no pre-resize (both produce
+            # off-grid floats).
+            src_quant = (
+                raw_b.dtype == torch.uint8 and self._input_format == "rgb" and (pw, ph) == (w, h)
+            )
+            if self._input_format != "rgb":
+                raw_b = self._convert_packed(raw_b)
+            src_b = Engine._to_rgba_float(raw_b)
+            if (pw, ph) != (w, h):
+                u, v = _grids(pw, ph)
+                src_b = torch.stack([sample2d(t, u, v, filter_linear=True) for t in src_b])
+            nb = src_b.shape[0]
 
-        card = self.device.type == "cuda"
+            def single(src, hist, fb, fc, tm):
+                return _run_chain_impl(
+                    prog, shapes, (vw, vh), src, hist, fb, fc, tm, params,
+                    blit=False, source_quantized=src_quant,
+                )
+
+            card = self.device.type == "cuda"
+            if fc_static is None:
+                out_shape = (shapes[-1].out_h, shapes[-1].out_w, 3)
+                fc_group = None if streams else self._fc_group(key, nb, temporal, fc_static)
+                pkey = (h, w, vw, vh, src_quant, self._effective_param_mode())
+                if streams:
+                    pkey += ("streams", streams)
+                if not temporal:
+                    pkey += (nb, fc_group)
+                program = self._programs.get(pkey)
+                if program is None:
+                    program = self._programs[pkey] = replay.ChainProgram()
+                walk_fn = single
+                if streams and temporal:
+                    # One step of every stream at once: frame t of the S streams,
+                    # each with its own state.
+                    walk_fn = torch.func.vmap(single)
+                    src_b = src_b.reshape((streams, nb // streams) + tuple(src_b.shape[1:])).transpose(0, 1)
+                    out_shape = (streams,) + out_shape
+
         if fc_static is not None:
             # Frames run with FrameCount and Time as host constants, so
             # time-dependent math (noise seeds ``xy * float(FrameCount)``,
@@ -722,23 +752,6 @@ class Engine:
             )
             return torch.stack(outs)[..., :3], new_state
 
-        out_shape = (shapes[-1].out_h, shapes[-1].out_w, 3)
-        fc_group = None if streams else self._fc_group(key, nb, temporal, fc_static)
-        pkey = (h, w, vw, vh, src_quant, self._effective_param_mode())
-        if streams:
-            pkey += ("streams", streams)
-        if not temporal:
-            pkey += (nb, fc_group)
-        program = self._programs.get(pkey)
-        if program is None:
-            program = self._programs[pkey] = replay.ChainProgram()
-        walk_fn = single
-        if streams and temporal:
-            # One step of every stream at once: frame t of the S streams,
-            # each with its own state.
-            walk_fn = torch.func.vmap(single)
-            src_b = src_b.reshape((streams, nb // streams) + tuple(src_b.shape[1:])).transpose(0, 1)
-            out_shape = (streams,) + out_shape
         out, new_state = replay.run_captured(
             program, walk_fn, src_b, state, out_shape, temporal, _ChainState, self._stats,
             graph=card and _replay_on(), fc_group=fc_group,
@@ -762,12 +775,20 @@ def _finalize(outs_b, vw: int, vh: int, u8: bool):
     """Batched viewport blit + output packing. The u8 path is the fused
     blit kernel (ops/cuda/resample.blit_u8)."""
     needs_blit = outs_b.shape[1] != vh or outs_b.shape[2] != vw
-    if not u8:
-        if needs_blit:
-            u, v = _grids(vw, vh)
-            outs_b = torch.stack([sample2d(t, u, v, filter_linear=True) for t in outs_b])
-        return outs_b
-    return blit_u8(outs_b, vw, vh)
+    with span("rctpu.engine.blit"):
+        if not u8:
+            if needs_blit:
+                u, v = _grids(vw, vh)
+                outs_b = torch.stack([sample2d(t, u, v, filter_linear=True) for t in outs_b])
+            return outs_b
+        return blit_u8(outs_b, vw, vh)
+
+
+def _readback(out) -> np.ndarray:
+    """``apply_u8``'s result on the host: waits for the device, then the
+    pageable copy."""
+    with span("rctpu.engine.readback"):
+        return out.cpu().numpy()
 
 
 def _npz_path(path: str) -> str:

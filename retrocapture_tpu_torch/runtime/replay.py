@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from retrocapture_tpu_torch.policy import WalkProgram, walking
+from retrocapture_tpu_torch.utils.trace import span
 
 __all__ = ["ChainProgram", "ReplayError", "run_captured", "new_stats", "stateless_batch"]
 
@@ -275,52 +276,57 @@ def run_captured(prog: ChainProgram, walk_fn, src_b, state, out_shape, temporal:
     i0 = 0
     cap = prog.captured.get(graph)
     if cap is None:
-        t0 = time.perf_counter()
-        if not prog.walk.recorded:
-            # The first walk records the program's uploads; it runs on the
-            # capture's stream, where it also warms what the capture needs
-            # (library handles, the kernels' builds): frame 0 of a temporal
-            # chain, the whole batch of a stateless one.
+        with span("rctpu.replay.capture"):
+            t0 = time.perf_counter()
+            if not prog.walk.recorded:
+                # The first walk records the program's uploads; it runs on the
+                # capture's stream, where it also warms what the capture needs
+                # (library handles, the kernels' builds): frame 0 of a temporal
+                # chain, the whole batch of a stateless one.
+                if graph:
+                    prog.stream.wait_stream(cur)
+                with side, walking(prog.walk):
+                    if temporal:
+                        out0, hist, fb = walk_fn(
+                            src_b[0], state.history, state.feedback, state.frame_count, state.time
+                        )
+                        outs = torch.empty((nb,) + tuple(out_shape), dtype=torch.float32, device=dev)
+                        outs[0].copy_(out0)
+                        state = make_state(hist, fb, state.frame_count + 1, state.time + _DT)
+                    else:
+                        outs = batch(src_b, state.frame_count, state.time)
+                if graph:
+                    cur.wait_stream(prog.stream)
+                i0 = 1 if temporal else nb
+            if temporal:
+                cap = _capture_step(prog, walk_fn, state, src_b[0], out_shape, make_state, graph, i0 == 1)
+                state = cap.state
+            else:
+                cap = _capture_batch(prog, batch, state, src_b, out_shape, make_state, graph, i0 == nb)
+            prog.captured[graph] = cap
             if graph:
-                prog.stream.wait_stream(cur)
-            with side, walking(prog.walk):
-                if temporal:
-                    out0, hist, fb = walk_fn(src_b[0], state.history, state.feedback, state.frame_count, state.time)
-                    outs = torch.empty((nb,) + tuple(out_shape), dtype=torch.float32, device=dev)
-                    outs[0].copy_(out0)
-                    state = make_state(hist, fb, state.frame_count + 1, state.time + _DT)
-                else:
-                    outs = batch(src_b, state.frame_count, state.time)
-            if graph:
-                cur.wait_stream(prog.stream)
-            i0 = 1 if temporal else nb
-        if temporal:
-            cap = _capture_step(prog, walk_fn, state, src_b[0], out_shape, make_state, graph, i0 == 1)
-            state = cap.state
-        else:
-            cap = _capture_batch(prog, batch, state, src_b, out_shape, make_state, graph, i0 == nb)
-        prog.captured[graph] = cap
-        if graph:
-            stats["graphs_captured"] += 1
-            stats["capture_seconds"] += time.perf_counter() - t0
+                stats["graphs_captured"] += 1
+                stats["capture_seconds"] += time.perf_counter() - t0
     if not temporal:
         if i0 == 0:
-            _copy_state_into(cap.state, state)
-            cap.src.copy_(src_b)
-            cap.graph.replay()
+            with span("rctpu.replay.launch"):
+                _copy_state_into(cap.state, state)
+                cap.src.copy_(src_b)
+                cap.graph.replay()
+                outs = cap.out.clone()
             stats["replays"] += graph
-            outs = cap.out.clone()
         n = nb // state.frame_count.numel()
         return outs, make_state(
             state.history, state.feedback, state.frame_count + n, state.time + float(_DT * np.float32(n))
         )
     if outs is None:
         outs = torch.empty((nb,) + tuple(out_shape), dtype=torch.float32, device=dev)
-    if state is not cap.state:
-        _copy_state_into(cap.state, state)
-    for i in range(i0, nb):
-        cap.src.copy_(src_b[i])
-        cap.graph.replay()
-        outs[i].copy_(cap.out)
+    with span("rctpu.replay.launch"):
+        if state is not cap.state:
+            _copy_state_into(cap.state, state)
+        for i in range(i0, nb):
+            cap.src.copy_(src_b[i])
+            cap.graph.replay()
+            outs[i].copy_(cap.out)
     stats["replays"] += (nb - i0) * graph
     return outs, cap.state
