@@ -12,8 +12,16 @@ Equivalents of three reference components:
   the batch before;
 * PBOManager's double-buffered async readback (renderer/PBOManager.cpp:
   86-170) — ``DeviceReadback`` starts the download of the current batch
-  into pinned memory and returns the *previous* batch, one batch of
-  latency by design.
+  into a pinned buffer of its own and returns the *previous* batch, one
+  batch of latency by design.
+
+The readback hands a batch out as a NumPy view of its pinned buffer, with
+no copy. An array handed out is the caller's own: no later download
+writes into a buffer while any array or frame view of its batch is alive,
+and a buffer comes back for a later download once the caller has dropped
+all of them. At most ``HELD`` pinned buffers serve the readback; where
+lending one more would leave none for the next download, the batch is
+copied out instead and its buffer freed at once.
 
 On a CPU device both are plain tensor conversions.
 """
@@ -31,6 +39,10 @@ from retrocapture_tpu_torch.policy import to_device
 from retrocapture_tpu_torch.utils.trace import span
 
 __all__ = ["FrameQueue", "DeviceFeeder", "DeviceReadback", "stream"]
+
+# Pinned readback buffers at most: one downloading, one being handed out,
+# the batch the caller still holds, one spare.
+HELD = 4
 
 
 class FrameQueue:
@@ -96,6 +108,10 @@ def _device(device) -> torch.device:
     return dev
 
 
+def _pinned(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, pin_memory=True)
+
+
 class _PinnedPair:
     """Two pinned host buffers used in turn; a buffer is reallocated when
     the batch's shape or dtype changes."""
@@ -109,8 +125,70 @@ class _PinnedPair:
         self._turn ^= 1
         buf = self._bufs[i]
         if buf is None or buf.shape != shape or buf.dtype != dtype:
-            buf = self._bufs[i] = torch.empty(shape, dtype=dtype, pin_memory=True)
+            buf = self._bufs[i] = _pinned(shape, dtype)
         return i, buf
+
+
+class _Slot:
+    """One readback buffer and whether a download may write into it."""
+
+    __slots__ = ("buf", "free")
+
+    def __init__(self, buf: torch.Tensor):
+        self.buf = buf
+        self.free = False
+
+
+class _Lease:
+    """The owner of a lent batch's memory. The array handed out is made
+    from this object's ``__array_interface__``, so the array and every
+    view of it keep the lease alive; the last of them to go frees the
+    buffer for a later download."""
+
+    __slots__ = ("__array_interface__", "_slot")
+
+    def __init__(self, slot: _Slot):
+        self._slot = slot
+        self.__array_interface__ = slot.buf.numpy().__array_interface__
+
+    def __del__(self):
+        self._slot.free = True
+
+
+class _Lender:
+    """The readback's pinned buffers, at most ``HELD``: ``take`` one for a
+    download, ``hand_out`` its batch once the download is done."""
+
+    def __init__(self, alloc: Callable = _pinned):
+        self._alloc = alloc
+        self._slots: list[_Slot] = []
+
+    def take(self, shape, dtype) -> _Slot:
+        """A buffer no array holds (made again where the batch's shape or
+        dtype changed), else a new one."""
+        for slot in self._slots:
+            if slot.free:
+                slot.free = False
+                if slot.buf.shape != shape or slot.buf.dtype != dtype:
+                    slot.buf = self._alloc(shape, dtype=dtype)
+                return slot
+        if len(self._slots) >= HELD:
+            raise RuntimeError(f"all {HELD} readback buffers are in use")
+        slot = _Slot(self._alloc(shape, dtype=dtype))
+        self._slots.append(slot)
+        return slot
+
+    def hand_out(self, slot: _Slot) -> np.ndarray:
+        """The batch in ``slot`` as the caller's own array: a view of the
+        buffer while, with it lent, one buffer is left for the next
+        download; else a copy, and the buffer is free at once."""
+        if sum(not s.free for s in self._slots) < HELD:
+            with span("rctpu.queue.handout"):
+                return np.asarray(_Lease(slot))
+        with span("rctpu.queue.copy_held"):
+            out = slot.buf.numpy().copy()
+            slot.free = True
+            return out
 
 
 class DeviceFeeder:
@@ -155,14 +233,18 @@ class DeviceReadback:
     """PBOManager-shaped async device→host readback: submit the current
     output, receive the previous one as NumPy. Needs >=2 submissions
     before data flows (PBOManager.cpp:137). On the card a submission
-    starts a copy into one of two pinned buffers on a side stream, behind
-    an event on the stream that computes the output; the buffer is read
-    (its event waited for, its contents copied out) one submission later,
-    before the copy after next can reuse it."""
+    starts a copy into a pinned buffer on a side stream, behind an event
+    on the stream that computes the output; one submission later the
+    event is waited for and the batch handed out as a view of that
+    buffer. The caller owns the array: the buffer is not written again
+    until the caller has dropped it and every frame of it. At most
+    ``HELD`` buffers are pinned; where the caller holds so many batches
+    that lending one more would leave no buffer for the next download,
+    that batch is copied out instead."""
 
     def __init__(self):
-        self._prev = None  # (host tensor, event or None)
-        self._pinned = _PinnedPair()
+        self._prev = None  # (buffer slot or host tensor, event or None)
+        self._lender = _Lender()
         self._side = None  # the download stream, made at the first CUDA tensor
 
     def _start(self, t: torch.Tensor):
@@ -171,27 +253,26 @@ class DeviceReadback:
         if self._side is None:
             self._side = torch.cuda.Stream(t.device)
         side = self._side
-        _, buf = self._pinned.next(t.shape, t.dtype)
+        slot = self._lender.take(t.shape, t.dtype)
         ready = torch.cuda.Event()
         ready.record(torch.cuda.current_stream(t.device))
         with torch.cuda.stream(side):
             side.wait_event(ready)
-            buf.copy_(t, non_blocking=True)
+            slot.buf.copy_(t, non_blocking=True)
             done = torch.cuda.Event()
             done.record(side)
         t.record_stream(side)
-        return buf, done
+        return slot, done
 
-    @staticmethod
-    def _finish(prev) -> np.ndarray:
-        host, done = prev
+    def _finish(self, prev) -> np.ndarray:
+        held, done = prev
         if done is None:
             with span("rctpu.queue.copy_out"):
-                return host.numpy()
+                return held.numpy()
         with span("rctpu.queue.readback_wait"):
             done.synchronize()
         with span("rctpu.queue.copy_out"):
-            return host.numpy().copy()
+            return self._lender.hand_out(held)
 
     def submit(self, device_array: torch.Tensor) -> Optional[np.ndarray]:
         with span("rctpu.queue.readback"):
@@ -218,7 +299,8 @@ def stream(
 ) -> Iterator[np.ndarray]:
     """Drive a frame iterator through ``process`` in batches with one
     batch of pipeline latency (feeder + readback composed). ``process``
-    takes and returns a tensor on ``device``."""
+    takes and returns a tensor on ``device``. Each frame yielded is the
+    caller's own, a view of its batch's readback buffer on the card."""
     feeder = DeviceFeeder(device)
     readback = DeviceReadback()
     buf: list[np.ndarray] = []
@@ -229,6 +311,9 @@ def stream(
             buf.clear()
             if out is not None:
                 yield from out
+            # Hold no frame of the batch through the next submission: its
+            # buffer comes back once the caller drops what it kept.
+            out = None
     if buf:
         out = readback.submit(process(feeder.put(_stack(buf))))
         if out is not None:

@@ -618,6 +618,35 @@ def test_stream_on_the_card_is_in_order(cuda_device):
     assert [float(o[0, 0, 0]) for o in outs] == [i + 0.5 for i in range(21)]
 
 
+def test_stream_lends_buffers_the_caller_may_keep(cuda_device, monkeypatch):
+    """A 10-batch stream whose caller keeps every frame: every batch
+    intact (no download wrote into a buffer that a kept frame views), at
+    most HELD pinned readback buffers, and from the fourth batch on no
+    new pinned allocation (where torch counts them)."""
+    from retrocapture_tpu_torch.io import queue
+
+    made = []
+
+    class Recorded(queue.DeviceReadback):
+        def __init__(self):
+            super().__init__()
+            made.append(self)
+
+    monkeypatch.setattr(queue, "DeviceReadback", Recorded)
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    frames = list(np.random.default_rng(23).integers(0, 256, (40, 64, 96, 3), dtype=np.uint8))
+    outs, allocs = [], []
+    for n, frame in enumerate(queue.stream(iter(frames), lambda b: b.to(torch.float32) * 2.0 + 1.0, batch=4)):
+        outs.append(frame)
+        if stats is not None and n % 4 == 0:
+            allocs.append(stats().get("num_host_alloc"))
+    np.testing.assert_array_equal(np.stack(outs), np.stack(frames).astype(np.float32) * 2.0 + 1.0)
+    slots = made[0]._lender._slots
+    assert len(slots) == queue.HELD and all(s.buf.is_pinned() for s in slots)
+    if allocs and allocs[0] is not None:
+        assert allocs[3:] == [allocs[3]] * (len(allocs) - 3), allocs
+
+
 def test_apply_streams_on_the_card_matches_the_cpu_port(cuda_device):
     """Within chip_smoke's gate (<= 1 u8 step in <= 0.1% of values), and
     stream s equal to an engine of its own, bit for bit."""

@@ -2,7 +2,9 @@
 and utils/metrics.py, runtime/config.py: the six cases of
 tests/test_io_native.py and the config and FrameStats cases of
 tests/test_utils_config.py, mirrored case for case on the CPU
-(``device="cpu"``), plus the order and latency of the feeder and readback.
+(``device="cpu"``), plus the order and latency of the feeder and readback,
+and the readback's lent pinned buffers driven with CPU tensors
+(tests/_host_readback.py).
 
 Tolerance: bit-equal everywhere (copies, pure Python and numpy; the
 queue's CPU path is a tensor conversion). The native converter against
@@ -16,8 +18,10 @@ import numpy as np
 import pytest
 import torch
 
+from _host_readback import HostReadback
 from retrocapture_tpu.io import testpattern as jtp
-from retrocapture_tpu_torch.io.queue import DeviceFeeder, DeviceReadback, FrameQueue, stream
+from retrocapture_tpu_torch.io import queue
+from retrocapture_tpu_torch.io.queue import HELD, DeviceFeeder, DeviceReadback, FrameQueue, stream
 from retrocapture_tpu_torch.io.testpattern import BAR_COLORS, TestPatternSource
 
 
@@ -50,6 +54,101 @@ def test_device_readback_one_frame_latency():
     tail = rb.flush()
     assert tail[0, 0] == 0.0
     assert rb.flush() is None
+
+
+def test_device_readback_on_the_cpu_hands_out_the_tensor_itself():
+    """A CPU tensor takes no buffer: the array handed out is the tensor's
+    own memory, as before the lent buffers."""
+    rb = DeviceReadback()
+    t = torch.arange(6, dtype=torch.float32).reshape(2, 3)
+    assert rb.submit(t) is None
+    out = rb.flush()
+    assert np.shares_memory(out, t.numpy()) and out.tolist() == t.tolist()
+    assert rb._lender._slots == []
+
+
+def _lent(shape=(3, 2, 2), fill=0):
+    lender = queue._Lender(torch.empty)
+    slot = lender.take(shape, torch.uint8)
+    slot.buf.fill_(fill)
+    return lender, slot
+
+
+def test_lent_buffer_is_not_reused_while_a_frame_of_it_lives():
+    lender, slot = _lent(fill=7)
+    batch = lender.hand_out(slot)
+    assert np.shares_memory(batch, slot.buf.numpy())
+    frame = batch[1]
+    del batch
+    other = lender.take((3, 2, 2), torch.uint8)
+    assert other is not slot and len(lender._slots) == 2
+    other.buf.fill_(9)
+    assert (frame == 7).all()
+
+
+def test_lent_buffer_is_reused_once_its_batch_is_dropped():
+    lender, slot = _lent()
+    batch = lender.hand_out(slot)
+    frames = list(batch)
+    del batch
+    assert not slot.free
+    del frames
+    assert slot.free
+    assert lender.take((3, 2, 2), torch.uint8) is slot and len(lender._slots) == 1
+    # Another shape: the same slot, a buffer made anew.
+    slot.free = True
+    assert lender.take((5, 2, 2), torch.uint8) is slot and tuple(slot.buf.shape) == (5, 2, 2)
+
+
+def test_at_the_cap_the_batch_is_copied_out_and_its_buffer_freed():
+    lender = queue._Lender(torch.empty)
+    held = []
+    for n in range(HELD - 1):  # lent while one buffer stays for the next download
+        slot = lender.take((2, 2), torch.uint8)
+        slot.buf.fill_(n)
+        held.append(lender.hand_out(slot))
+        assert np.shares_memory(held[-1], slot.buf.numpy())
+    last = lender.take((2, 2), torch.uint8)
+    last.buf.fill_(HELD - 1)
+    out = lender.hand_out(last)
+    assert not np.shares_memory(out, last.buf.numpy()) and last.free and (out == HELD - 1).all()
+    assert len(lender._slots) == HELD
+    assert lender.take((2, 2), torch.uint8) is last
+    with pytest.raises(RuntimeError, match="readback buffers"):
+        lender.take((2, 2), torch.uint8)
+    assert [int(a[0, 0]) for a in held] == list(range(HELD - 1))
+
+
+@pytest.mark.parametrize("keep", ["every frame", "nothing"])
+def test_stream_through_lent_buffers(monkeypatch, keep):
+    """Over more batches than the cap: every frame intact and in order.
+    A caller that keeps every frame gets its first batches lent and
+    copies once the cap is near, HELD buffers in all; one that keeps
+    nothing gets every batch lent from two buffers, since the generator
+    holds no batch through the next submission."""
+    monkeypatch.setattr(queue, "DeviceReadback", HostReadback)
+    frames = [np.full((2, 3), i, np.uint8) for i in range(4 * (HELD + 6) + 2)]
+    lent = []
+    real = queue._Lender.hand_out
+
+    def hand_out(self, slot):
+        out = real(self, slot)
+        lent.append(np.shares_memory(out, slot.buf.numpy()))
+        return out
+
+    monkeypatch.setattr(queue._Lender, "hand_out", hand_out)
+    it = stream(iter(frames), lambda b: b.to(torch.float32) + 0.5, batch=4, device="cpu")
+    expect = [i + 0.5 for i in range(len(frames))]
+    if keep == "every frame":
+        outs = list(it)
+        assert [float(o[0, 0]) for o in outs] == expect
+        np.testing.assert_array_equal(np.stack(outs), np.stack(frames).astype(np.float32) + 0.5)
+        assert lent[:HELD - 2] == [True] * (HELD - 2) and not any(lent[HELD - 2:-1]) and lent[-1]
+        assert len(HostReadback.last._lender._slots) == HELD
+    else:
+        assert list(map(lambda f: float(f[0, 0]), it)) == expect  # each frame dropped before the next
+        assert all(lent) and len(HostReadback.last._lender._slots) == 2
+    assert len(lent) == -(-len(frames) // 4)
 
 
 def test_stream_pipeline():

@@ -17,6 +17,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 import retrocapture_tpu_torch as torch_pkg
+from _host_readback import HostReadback
+from retrocapture_tpu_torch.io import queue
 from retrocapture_tpu_torch.io.queue import stream
 from retrocapture_tpu_torch.utils import trace
 
@@ -149,6 +151,24 @@ def test_queue_spans_on_the_cpu(n, batch):
     assert _inside(ranges, "rctpu.queue.copy_out", "rctpu.queue.readback")
 
 
+def test_handout_spans_inside_copy_out(monkeypatch):
+    """The lent readback path (CPU tensors through tests/_host_readback.py),
+    the caller keeping every frame: each batch handed out opens one
+    ``copy_out`` and inside it one ``handout`` (lent) or ``copy_held``
+    (copied at the cap)."""
+    monkeypatch.setattr(queue, "DeviceReadback", HostReadback)
+    frames = [f for f in _frames(4 * (queue.HELD + 2))]
+    out, ranges = _traced(lambda: list(stream(iter(frames), lambda b: b + 1, batch=4, device="cpu")))
+    np.testing.assert_array_equal(np.stack(out), np.stack(frames) + 1)
+    batches = queue.HELD + 2
+    assert _count(ranges, "rctpu.queue.copy_out") == batches
+    assert _count(ranges, "rctpu.queue.handout") == queue.HELD - 1  # the first two and the flush's
+    assert _count(ranges, "rctpu.queue.copy_held") == batches - (queue.HELD - 1)
+    for name in ("rctpu.queue.handout", "rctpu.queue.copy_held"):
+        assert _inside(ranges, name, "rctpu.queue.copy_out"), name
+        assert _nothing_inside(ranges, name), name
+
+
 # -- the engine ---------------------------------------------------------------
 def test_engine_apply_u8_spans(tmp_path):
     e = _engine(tmp_path)
@@ -232,7 +252,11 @@ def test_queue_spans_on_the_card():
     assert _count(ranges, "rctpu.queue.upload_wait") == 3  # from the third put, a buffer is reused
     assert _count(ranges, "rctpu.queue.readback_wait") == 5  # one a batch returned
     assert _count(ranges, "rctpu.queue.copy_out") == 5
+    # The caller keeps every frame: batches 0, 1 and the flush's are lent, 2 and 3 copied at the cap.
+    assert _count(ranges, "rctpu.queue.handout") == 3 and _count(ranges, "rctpu.queue.copy_held") == 2
     assert _inside(ranges, "rctpu.queue.upload_wait", "rctpu.queue.upload")
     for name in ("rctpu.queue.readback_wait", "rctpu.queue.copy_out"):
         assert _inside(ranges, name, "rctpu.queue.readback"), name
+    for name in ("rctpu.queue.handout", "rctpu.queue.copy_held"):
+        assert _inside(ranges, name, "rctpu.queue.copy_out"), name
 
