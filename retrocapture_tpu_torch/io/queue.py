@@ -7,9 +7,9 @@ Equivalents of three reference components:
 * the capture thread's bounded frame queue with drop-oldest overflow
   (VideoCaptureRemote.h:182-188, ~20 frames);
 * FrameProcessor's CPU→GPU upload (processing/FrameProcessor.cpp:43) —
-  ``DeviceFeeder`` copies a batch into one of two pinned host buffers and
-  starts the upload on a side stream, so the DMA overlaps the compute of
-  the batch before;
+  ``DeviceFeeder`` stacks a batch into one of ``UPLOADS`` pinned host
+  buffers and starts the upload on a side stream, so the DMA overlaps the
+  compute of the batch before;
 * PBOManager's double-buffered async readback (renderer/PBOManager.cpp:
   86-170) — ``DeviceReadback`` starts the download of the current batch
   into a pinned buffer of its own and returns the *previous* batch, one
@@ -23,13 +23,23 @@ all of them. At most ``HELD`` pinned buffers serve the readback; where
 lending one more would leave none for the next download, the batch is
 copied out instead and its buffer freed at once.
 
-On a CPU device both are plain tensor conversions.
+On the card ``stream`` takes the source's frames on a thread of its own
+and stacks them on another, ahead of the caller's: the thread that
+launches the engine and waits for the downloads runs no producer and
+copies no frame in. A profiler records the ranges of the thread that
+started it, so the stacking thread's ``rctpu.queue.stack`` ranges show
+only in a trace of all threads.
+
+On a CPU device both are plain tensor conversions, and ``stream`` stacks
+on the caller's thread.
 """
 
 from __future__ import annotations
 
 import collections
+import queue as _queue
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator, Optional
 
 import numpy as np
@@ -43,6 +53,9 @@ __all__ = ["FrameQueue", "DeviceFeeder", "DeviceReadback", "stream"]
 # Pinned readback buffers at most: one downloading, one being handed out,
 # the batch the caller still holds, one spare.
 HELD = 4
+# Pinned upload buffers: one uploading, and on the card up to two more
+# batches stacked ahead of the caller by ``stream``'s stacking thread.
+UPLOADS = 3
 
 
 class FrameQueue:
@@ -112,21 +125,14 @@ def _pinned(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, pin_memory=True)
 
 
-class _PinnedPair:
-    """Two pinned host buffers used in turn; a buffer is reallocated when
-    the batch's shape or dtype changes."""
+class _Upload:
+    """One pinned upload buffer and the event of the last upload out of it."""
+
+    __slots__ = ("buf", "copied")
 
     def __init__(self):
-        self._bufs = [None, None]
-        self._turn = 0
-
-    def next(self, shape, dtype):
-        i = self._turn
-        self._turn ^= 1
-        buf = self._bufs[i]
-        if buf is None or buf.shape != shape or buf.dtype != dtype:
-            buf = self._bufs[i] = _pinned(shape, dtype)
-        return i, buf
+        self.buf = None
+        self.copied = None
 
 
 class _Slot:
@@ -192,40 +198,68 @@ class _Lender:
 
 
 class DeviceFeeder:
-    """Double-buffered host→device transfer: ``put`` returns the device
+    """Buffered host→device transfer: ``put`` returns the device
     tensor for the *current* batch while the previous one is likely still
-    processing. On the card the batch goes through one of two pinned
-    buffers and a ``non_blocking`` copy on a side stream; the compute
-    stream waits on the copy's event, the host does not."""
+    processing. On the card the batch goes through one of ``UPLOADS``
+    pinned buffers, used in turn, and a ``non_blocking`` copy on a side
+    stream; the compute stream waits on the copy's event, the host does
+    not. ``put`` is ``stage`` and ``send`` in one call: ``stage`` (the
+    host's half: the frames stacked into a free pinned buffer) may run on
+    another thread than ``send`` (the upload's enqueue), for up to
+    ``UPLOADS`` staged batches that are not yet sent."""
 
     def __init__(self, device="cuda"):
         self.device = _device(device)
         if self.device.type == "cuda":
             self._stream = torch.cuda.Stream(self.device)
-            self._pinned = _PinnedPair()
-            self._copied = [None, None]  # the event of the last upload out of each buffer
+            self._free = collections.deque(_Upload() for _ in range(UPLOADS))
 
     def put(self, batch: np.ndarray) -> torch.Tensor:
         with span("rctpu.queue.upload"):
-            return self._put(batch)
+            if self.device.type != "cuda":
+                return to_device(batch, self.device)
+            host = to_device(batch, "cpu")
+            slot = self._take(host.shape, host.dtype)
+            slot.buf.copy_(host)
+            return self._send(slot)
 
-    def _put(self, batch: np.ndarray) -> torch.Tensor:
-        if self.device.type != "cuda":
-            return to_device(batch, self.device)
-        host = to_device(batch, "cpu")
-        i, buf = self._pinned.next(host.shape, host.dtype)
-        if self._copied[i] is not None:
+    def stage(self, frames: list):
+        """``frames`` stacked into one batch: on the card straight into a
+        free pinned buffer, canonicalised as ``policy.to_device`` does."""
+        with span("rctpu.queue.stack"):
+            if self.device.type != "cuda":
+                return np.stack(frames)
+            first = np.asarray(frames[0])
+            dtype = to_device(first[:0], "cpu").dtype
+            slot = self._take((len(frames),) + first.shape, dtype)
+            np.stack(frames, out=slot.buf.numpy())
+            return slot
+
+    def send(self, staged) -> torch.Tensor:
+        """The upload of a batch ``stage`` returned."""
+        with span("rctpu.queue.upload"):
+            if self.device.type != "cuda":
+                return to_device(staged, self.device)
+            return self._send(staged)
+
+    def _take(self, shape, dtype) -> _Upload:
+        slot = self._free.popleft()
+        if slot.copied is not None:
             with span("rctpu.queue.upload_wait"):
-                self._copied[i].synchronize()  # the upload that last read this buffer is done
-        buf.copy_(host)
+                slot.copied.synchronize()  # the upload that last read this buffer is done
+        if slot.buf is None or slot.buf.shape != shape or slot.buf.dtype != dtype:
+            slot.buf = _pinned(shape, dtype)
+        return slot
+
+    def _send(self, slot: _Upload) -> torch.Tensor:
         compute = torch.cuda.current_stream(self.device)
         with torch.cuda.stream(self._stream):
-            dev = buf.to(self.device, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(self._stream)
-        self._copied[i] = done
-        compute.wait_event(done)
+            dev = slot.buf.to(self.device, non_blocking=True)
+            slot.copied = torch.cuda.Event()
+            slot.copied.record(self._stream)
+        compute.wait_event(slot.copied)
         dev.record_stream(compute)
+        self._free.append(slot)
         return dev
 
 
@@ -285,9 +319,65 @@ class DeviceReadback:
             return None if prev is None else self._finish(prev)
 
 
-def _stack(frames: list) -> np.ndarray:
-    with span("rctpu.queue.stack"):
-        return np.stack(frames)
+def _chunks(frames: Iterator[np.ndarray], batch: int) -> Iterator[list]:
+    """The frames in lists of ``batch``, the last one shorter."""
+    buf: list[np.ndarray] = []
+    for f in frames:
+        buf.append(f)
+        if len(buf) == batch:
+            yield buf
+            buf = []
+    if buf:
+        yield buf
+
+
+class _Ahead:
+    """The source's batches staged ahead of the caller, at most
+    ``UPLOADS`` of them, on two threads of their own: one takes the next
+    batches' frames from the source, the other stacks each batch into one
+    of the feeder's pinned buffers, while the caller's thread launches a
+    batch and waits for the download of the one before. The two overlap,
+    so the slower of them alone sets their pace. A batch's buffer is
+    staged again only after the caller has sent it; ``close`` stops both
+    threads at their next batch."""
+
+    _END = object()
+
+    def __init__(self, frames: Iterator[np.ndarray], batch: int, feeder: DeviceFeeder):
+        self._ready: _queue.SimpleQueue = _queue.SimpleQueue()
+        self._room = threading.Semaphore(UPLOADS)
+        self._stop = False
+        self._stager = ThreadPoolExecutor(1, thread_name_prefix="rctpu-queue-stage")
+        self._thread = threading.Thread(
+            target=self._run, args=(frames, batch, feeder), name="rctpu-queue-read", daemon=True)
+        self._thread.start()
+
+    def _run(self, frames, batch, feeder) -> None:
+        try:
+            for chunk in _chunks(frames, batch):
+                self._room.acquire()
+                if self._stop:
+                    return
+                self._ready.put(self._stager.submit(feeder.stage, chunk))
+            self._ready.put(self._END)
+        except BaseException as exc:  # handed to the caller's thread
+            self._ready.put(exc)
+
+    def __iter__(self):
+        while True:
+            item = self._ready.get()
+            if item is self._END:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item.result()
+            # The batch yielded has been sent: its buffer may be staged again.
+            self._room.release()
+
+    def close(self) -> None:
+        self._stop = True
+        self._room.release()
+        self._stager.shutdown(wait=False, cancel_futures=True)
 
 
 def stream(
@@ -300,24 +390,28 @@ def stream(
     """Drive a frame iterator through ``process`` in batches with one
     batch of pipeline latency (feeder + readback composed). ``process``
     takes and returns a tensor on ``device``. Each frame yielded is the
-    caller's own, a view of its batch's readback buffer on the card."""
+    caller's own, a view of its batch's readback buffer on the card. On
+    the card the source is read, and its batches stacked, on two threads
+    of their own, up to ``UPLOADS`` batches ahead of ``process``."""
     feeder = DeviceFeeder(device)
     readback = DeviceReadback()
-    buf: list[np.ndarray] = []
-    for f in source_frames:
-        buf.append(f)
-        if len(buf) == batch:
-            out = readback.submit(process(feeder.put(_stack(buf))))
-            buf.clear()
+    if feeder.device.type == "cuda":
+        ahead = _Ahead(iter(source_frames), batch, feeder)
+        staged = iter(ahead)
+    else:
+        ahead = None
+        staged = (feeder.stage(chunk) for chunk in _chunks(source_frames, batch))
+    try:
+        for batch_in in staged:
+            out = readback.submit(process(feeder.send(batch_in)))
             if out is not None:
                 yield from out
             # Hold no frame of the batch through the next submission: its
             # buffer comes back once the caller drops what it kept.
             out = None
-    if buf:
-        out = readback.submit(process(feeder.put(_stack(buf))))
-        if out is not None:
-            yield from out
-    tail = readback.flush()
-    if tail is not None:
-        yield from tail
+        tail = readback.flush()
+        if tail is not None:
+            yield from tail
+    finally:
+        if ahead is not None:
+            ahead.close()

@@ -286,8 +286,10 @@ class Engine:
 
     def replay_stats(self, reset: bool = False) -> dict:
         """Graphs captured, frames replayed, applies on a card that walked
-        uncaptured (``RCTPU_REPLAY=0`` or concrete FrameCount), and the
-        seconds spent in first walks and captures; ``reset`` zeroes them."""
+        uncaptured (``RCTPU_REPLAY=0`` or concrete FrameCount), the
+        seconds spent in first walks and captures, the frames run through
+        the chain and those of them that took the fc-period grouped
+        branch; ``reset`` zeroes them."""
         out = dict(self._stats)
         if reset:
             self._stats = replay.new_stats()
@@ -713,6 +715,7 @@ class Engine:
                 )
 
             card = self.device.type == "cuda"
+            fc_group = None
             if fc_static is None:
                 out_shape = (shapes[-1].out_h, shapes[-1].out_w, 3)
                 fc_group = None if streams else self._fc_group(key, nb, temporal, fc_static)
@@ -732,6 +735,8 @@ class Engine:
                     src_b = src_b.reshape((streams, nb // streams) + tuple(src_b.shape[1:])).transpose(0, 1)
                     out_shape = (streams,) + out_shape
 
+        self._stats["frames"] += nb
+        self._stats["fc_grouped_frames"] += nb if fc_group else 0
         if fc_static is not None:
             # Frames run with FrameCount and Time as host constants, so
             # time-dependent math (noise seeds ``xy * float(FrameCount)``,

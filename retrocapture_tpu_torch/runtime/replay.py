@@ -66,8 +66,11 @@ class ReplayError(RuntimeError):
 
 
 def new_stats() -> dict:
-    """The counts ``Engine.replay_stats`` reports."""
-    return {"graphs_captured": 0, "replays": 0, "uncaptured_applies": 0, "capture_seconds": 0.0}
+    """The counts ``Engine.replay_stats`` reports: ``frames`` run through the
+    chain by every branch, and ``fc_grouped_frames`` of them by the
+    fc-period grouped one."""
+    return {"graphs_captured": 0, "replays": 0, "uncaptured_applies": 0, "capture_seconds": 0.0,
+            "frames": 0, "fc_grouped_frames": 0}
 
 
 @dataclass

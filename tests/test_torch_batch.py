@@ -369,6 +369,38 @@ def test_odd_batch_bypasses_grouping(tmp, monkeypatch):
     assert g._fc_hosts[SRC_HW + (128, 96)] == 7
 
 
+COUNTED = {  # name -> (preset writer, viewport, batch, RCTPU_FC_GROUP, grouped frames of the batch)
+    "ntsc-grouped": (lambda d: write_ntsc(d, 256), (128, 96), 4, "1", 4),
+    "ntsc-group-off": (lambda d: write_ntsc(d, 256), (128, 96), 4, "0", 0),
+    "ntsc-one-frame": (lambda d: write_ntsc(d, 256), (128, 96), 1, "1", 0),
+    "one-pass-stateless": (lambda d: write_fc(d, "unread"), FC_VIEWPORT, 4, "1", 0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(COUNTED))
+def test_frame_counters(tmp, monkeypatch, name):
+    """``replay_stats`` counts every frame an apply runs through the chain
+    (``frames``) and those of the fc-period grouped branch
+    (``fc_grouped_frames``), over two applies."""
+    write, viewport, nb, group, grouped = COUNTED[name]
+    e = _port_engine(write(tmp), viewport)
+    for seed in (50, 51):
+        with monkeypatch.context() as mp:
+            mp.setenv("RCTPU_FC_GROUP", group)
+            e.apply(torch.from_numpy(_frames(seed, nb)), output="u8")
+    stats = e.replay_stats()
+    assert (stats["frames"], stats["fc_grouped_frames"]) == (2 * nb, 2 * grouped)
+
+
+def test_frame_counters_reset(tmp):
+    """``replay_stats(reset=True)`` reports the counts, then zeroes them."""
+    e = _port_engine(write_ntsc(tmp, 256), (128, 96))
+    e.apply(torch.from_numpy(_frames(52, 4)), output="u8")
+    before, after = e.replay_stats(reset=True), e.replay_stats()
+    assert (before["frames"], before["fc_grouped_frames"]) == (4, 4)
+    assert (after["frames"], after["fc_grouped_frames"]) == (0, 0)
+
+
 def test_fc_hosts_through_save_and_load_state(tmp, monkeypatch):
     """``_fc_hosts`` comes back from a checkpoint of either package
     (``s{k}_fc``), so a grouped batch after ``load_state`` starts from the
@@ -465,7 +497,8 @@ def test_one_walk_an_apply_and_a_program_per_batch_size(tmp, monkeypatch):
     assert len(walks) == 4
     assert sorted(k[-2:] for k in _stateless_keys(e)) == [(2, None), (4, None)]
     assert e._fc_hosts[SRC_HW + VIEWPORT] == 14 and int(e._states[SRC_HW + VIEWPORT].frame_count) == 14
-    assert e.replay_stats() == {"graphs_captured": 0, "replays": 0, "uncaptured_applies": 0, "capture_seconds": 0.0}
+    assert e.replay_stats() == {"graphs_captured": 0, "replays": 0, "uncaptured_applies": 0, "capture_seconds": 0.0,
+                                "frames": 14, "fc_grouped_frames": 0}
 
 
 # -- 6. the kernels' batching rules -----------------------------------------------

@@ -3,8 +3,9 @@ and utils/metrics.py, runtime/config.py: the six cases of
 tests/test_io_native.py and the config and FrameStats cases of
 tests/test_utils_config.py, mirrored case for case on the CPU
 (``device="cpu"``), plus the order and latency of the feeder and readback,
-and the readback's lent pinned buffers driven with CPU tensors
-(tests/_host_readback.py).
+the readback's lent pinned buffers driven with CPU tensors
+(tests/_host_readback.py), and the reading and stacking threads that
+``stream`` runs on the card, driven with the CPU feeder.
 
 Tolerance: bit-equal everywhere (copies, pure Python and numpy; the
 queue's CPU path is a tensor conversion). The native converter against
@@ -12,6 +13,7 @@ the port's device converter keeps the original's 0.01 (fixed-point
 rounding).
 """
 
+import threading
 import time
 
 import numpy as np
@@ -21,7 +23,7 @@ import torch
 from _host_readback import HostReadback
 from retrocapture_tpu.io import testpattern as jtp
 from retrocapture_tpu_torch.io import queue
-from retrocapture_tpu_torch.io.queue import HELD, DeviceFeeder, DeviceReadback, FrameQueue, stream
+from retrocapture_tpu_torch.io.queue import HELD, UPLOADS, DeviceFeeder, DeviceReadback, FrameQueue, stream
 from retrocapture_tpu_torch.io.testpattern import BAR_COLORS, TestPatternSource
 
 
@@ -195,6 +197,74 @@ def test_feeder_canonicalises_like_device_put():
     t = f.put(batch)
     batch[:] = 0  # the fed tensor does not alias the caller's buffer
     assert t.tolist() == [[0, 1, 2], [3, 4, 5]]
+
+
+def _counted(n, pulled, fail_at=None):
+    """Frames 0..n-1 (forever where n is None), each noted in ``pulled``
+    as the source hands it out; frame ``fail_at`` raises instead."""
+    i = 0
+    while n is None or i < n:
+        if i == fail_at:
+            raise ValueError(f"frame {i}")
+        pulled.append(i)
+        yield np.full((2, 3), i, np.uint8)
+        i += 1
+
+
+def _settled(pulled, want, timeout=10.0):
+    """Wait for the reading thread to have pulled ``want`` frames; then
+    check it pulls no more."""
+    deadline = time.monotonic() + timeout
+    while len(pulled) < want and time.monotonic() < deadline:
+        time.sleep(0.005)
+    time.sleep(0.1)
+    return len(pulled)
+
+
+def test_stacking_thread_keeps_order_and_stays_at_most_uploads_ahead():
+    """The threads stage batches in the source's order, the last one
+    short, and the reading one blocks once ``UPLOADS`` batches are staged
+    that the caller has not finished with: it has then taken one batch
+    more of frames."""
+    pulled = []
+    ahead = queue._Ahead(_counted(4 * (UPLOADS + 3) + 2, pulled), 4, DeviceFeeder("cpu"))
+    it = iter(ahead)
+    first = next(it)
+    assert _settled(pulled, 4 * (UPLOADS + 1)) == 4 * (UPLOADS + 1)
+    rest = list(it)
+    got = np.concatenate([first] + rest)
+    assert [b.shape[0] for b in [first] + rest] == [4] * (UPLOADS + 3) + [2]
+    np.testing.assert_array_equal(got[:, 0, 0], np.arange(4 * (UPLOADS + 3) + 2))
+    ahead._thread.join(5.0)
+    assert not ahead._thread.is_alive()
+
+
+def test_stacking_thread_hands_the_source_error_to_the_caller():
+    pulled = []
+    it = iter(queue._Ahead(_counted(None, pulled, fail_at=6), 4, DeviceFeeder("cpu")))
+    assert next(it)[:, 0, 0].tolist() == [0, 1, 2, 3]
+    with pytest.raises(ValueError, match="frame 6"):
+        next(it)
+
+
+def test_stacking_thread_stops_on_close():
+    """A caller that leaves early stops the threads, also while the
+    reading one waits for room; no thread is left behind by a stream that
+    is closed."""
+    pulled = []
+    ahead = queue._Ahead(_counted(None, pulled), 4, DeviceFeeder("cpu"))
+    it = iter(ahead)
+    next(it)
+    _settled(pulled, 4 * (UPLOADS + 1))
+    ahead.close()
+    ahead._thread.join(5.0)
+    ahead._stager.shutdown(wait=True)
+    assert not ahead._thread.is_alive()
+    before = threading.active_count()
+    s = stream(_counted(None, []), lambda b: b, batch=4, device="cpu")
+    next(s)
+    s.close()
+    assert threading.active_count() == before
 
 
 def test_testpattern_content():

@@ -249,14 +249,29 @@ def test_queue_spans_on_the_card():
     out, ranges = _traced(lambda: list(stream(iter(frames), lambda b: b + 1, batch=4, device="cuda")))
     np.testing.assert_array_equal(np.stack(out), np.stack(frames) + 1)
     assert _count(ranges, "rctpu.queue.upload") == 5
-    assert _count(ranges, "rctpu.queue.upload_wait") == 3  # from the third put, a buffer is reused
+    # The stacking thread's ranges (stack, upload_wait in it) are not in a
+    # trace of the caller's thread.
+    assert _count(ranges, "rctpu.queue.stack") == _count(ranges, "rctpu.queue.upload_wait") == 0
     assert _count(ranges, "rctpu.queue.readback_wait") == 5  # one a batch returned
     assert _count(ranges, "rctpu.queue.copy_out") == 5
     # The caller keeps every frame: batches 0, 1 and the flush's are lent, 2 and 3 copied at the cap.
     assert _count(ranges, "rctpu.queue.handout") == 3 and _count(ranges, "rctpu.queue.copy_held") == 2
-    assert _inside(ranges, "rctpu.queue.upload_wait", "rctpu.queue.upload")
     for name in ("rctpu.queue.readback_wait", "rctpu.queue.copy_out"):
         assert _inside(ranges, name, "rctpu.queue.readback"), name
     for name in ("rctpu.queue.handout", "rctpu.queue.copy_held"):
         assert _inside(ranges, name, "rctpu.queue.copy_out"), name
 
+
+@pytest.mark.cuda
+def test_feeder_put_spans_on_the_card():
+    """``put`` on the caller's thread: one ``upload`` a batch, and inside it
+    the wait for a pinned buffer's last upload once the buffers come round."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the pinned upload waits on its events)")
+    feeder = queue.DeviceFeeder("cuda")
+    frames = _frames(20, hw=(64, 64))
+    _, ranges = _traced(lambda: [feeder.put(frames[i:i + 4]) for i in range(0, 20, 4)])
+    torch.cuda.synchronize()
+    assert _count(ranges, "rctpu.queue.upload") == 5
+    assert _count(ranges, "rctpu.queue.upload_wait") == 5 - queue.UPLOADS  # from the fourth put, a buffer is reused
+    assert _inside(ranges, "rctpu.queue.upload_wait", "rctpu.queue.upload")
