@@ -114,6 +114,8 @@ MIRRORS_REPLACE = "none, XLA's inline sin/log/exp in the reference's fusions"
 # triples a mode against policy.fma32 / fmaf32.
 FMA_SAMPLE = 1 << 26
 FMA_REPLACE = "none, XLA's contracted multiply-adds in the reference's fusions"
+# The xbr front section's kernel (csrc/xbr_front.cu).
+XBR_FRONT_REPLACE = "none, XLA's fusion of the front section of retrocapture_tpu/graph/kernels.py:340"
 
 # (src_h, src_w, viewport) of the xbr kernel checks beyond the main path's
 # own shape: x ratios 2 and 3, an output width that is no integer ratio
@@ -990,27 +992,46 @@ def _xbr_plain_args(S, maps):
     return S, maps.bx, maps.fpx, maps.fpy
 
 
+def _xbr_front_plain(args):
+    """The front section's plain version on a recorded launch's
+    arguments (``rctpu::xbr_front``'s)."""
+    from retrocapture_tpu_torch.ops.cuda import xbr_front as xf
+
+    return xf.xbr_front_plain(args[0], args[1], args[2:7], *args[7:])
+
+
 def phase_xbr_kernel(gen, Engine, path):
-    """The xbr epilogue kernel against its plain version, bit-equal, on
-    the front section's own S: one random frame at the main path's shape
-    (240x320 -> 1080x1920) and at XBR_GEOMETRIES, small_details 0 and 1;
-    no block may take the general path there. Returns the worst |d| and
-    the main path's epilogue inputs (S, the geometry's maps)."""
+    """The xbr front section's and epilogue's kernels against their plain
+    versions, bit-equal, the epilogue on the front section's own S: one
+    random frame at the main path's shape (240x320 -> 1080x1920) and at
+    XBR_GEOMETRIES, small_details 0 and 1; no epilogue block may take the
+    general path there. Returns the worst |d| of each and the main path's
+    epilogue inputs (S, the geometry's maps)."""
     import torch
 
     from retrocapture_tpu_torch.ops.cuda import xbr_epilogue as xe
+    from retrocapture_tpu_torch.ops.cuda import xbr_front as xf
 
-    worst, main = 0.0, None
+    worst, front_worst, main = 0.0, 0.0, None
     for small in (0.0, 1.0):
         for h, w, vp in [SRC_HW + (VIEWPORT,)] + XBR_GEOMETRIES:
             frame = torch.randint(0, 256, (1, h, w, 3), generator=gen, device=DEV, dtype=torch.uint8)
             e = _xbr_engine(Engine, path, vp, small)
             # The walk's own launch (a graph's capture launches it too).
-            with launched(xe, "_xbr_epilogue_op") as calls, env(RCTPU_REPLAY="0"):
+            with launched(xe, "_xbr_epilogue_op") as calls, launched(xf, "_xbr_front_op") as fcalls, \
+                    env(RCTPU_REPLAY="0"):
                 e.apply(frame, output="u8")
             _engine_ok(e, f"xbr {h}x{w} -> {vp}")
             what = f"S {tuple(calls[0][0].shape) if calls else None} -> {vp[1]}x{vp[0]} small_details={small:g}"
-            check(len(calls) == 1, f"xbr {h}x{w} -> {vp}: the hand kernel did not engage ({len(calls)} calls)")
+            check(len(calls) == 1 and len(fcalls) == 1,
+                  f"xbr {h}x{w} -> {vp}: the hand kernels did not engage ({len(fcalls)}, {len(calls)} calls)")
+            S = xf._xbr_front_op(*fcalls[0])
+            S_plain = _xbr_front_plain(fcalls[0])
+            torch.cuda.synchronize()
+            ferr = float((S - S_plain).abs().max())
+            check(bool(torch.equal(S, S_plain)) and bool(torch.equal(S, calls[0][0])),
+                  f"xbr front {what}: not bit-equal to plain (max |d| {ferr:.3e}) or to the epilogue's S")
+            front_worst = max(front_worst, ferr)
             args = (calls[0][0], _xbr_kept_maps(e))
             xe.general_blocks(reset=True)
             got = xe.xbr_epilogue(*args)
@@ -1024,24 +1045,25 @@ def phase_xbr_kernel(gen, Engine, path):
             worst = max(worst, err)
             if main is None:
                 main = args
-            say("13", f"xbr_epilogue {what}: ok (bit-equal to plain, general-path blocks {general})")
-    return worst, main
+            say("13", f"xbr_front and xbr_epilogue {what}: ok (bit-equal to plain, general-path blocks {general})")
+    return worst, front_worst, main
 
 
 def phase_xbr_slice(gen, Engine, path):
     """xbr-lv2 through Engine.apply, walked uncaptured (the caller sets
     RCTPU_REPLAY=0): 3 applies at batch 64 (epilogue kernel counted: one
-    launch of the batch an apply), CUDA against the port's CPU run
-    on 2 frames, and one apply with small_details = 1."""
+    launch of the batch an apply, the front section's too), CUDA against
+    the port's CPU run on 2 frames, and one apply with small_details = 1."""
     import torch
 
     from retrocapture_tpu_torch.ops.cuda import xbr_epilogue as xe
+    from retrocapture_tpu_torch.ops.cuda import xbr_front as xf
 
     h, w = SRC_HW
     vw, vh = VIEWPORT
     frames = torch.randint(0, 256, (XBR_BATCH, h, w, 3), generator=gen, device=DEV, dtype=torch.uint8)
     e = _xbr_engine(Engine, path, VIEWPORT)
-    xe.LAUNCHES = 0
+    xe.LAUNCHES = xf.LAUNCHES = 0
     xe.general_blocks(reset=True)
     for i in range(3):
         out = e.apply(frames, output="u8")
@@ -1049,9 +1071,10 @@ def phase_xbr_slice(gen, Engine, path):
         _engine_ok(e, f"xbr apply {i}")
         check(tuple(out.shape) == (XBR_BATCH, vh, vw, 3), f"xbr shape {tuple(out.shape)}")
         check(out.dtype == torch.uint8 and out.device.type == torch.device(DEV).type, f"xbr dtype {out.dtype} on {out.device}")
-    launches = xe.LAUNCHES
+    launches = {"xbr_epilogue": xe.LAUNCHES, "xbr_front": xf.LAUNCHES}
     general = xe.general_blocks(reset=True)
-    check(launches == 3, f"xbr: epilogue kernel launches {launches}, want 3 (one an apply)")
+    check(launches == {"xbr_epilogue": 3, "xbr_front": 3},
+          f"xbr: (epilogue, front) kernel launches {launches}, want 3 each (one an apply)")
     check(general == 0, f"xbr: {general} epilogue blocks took the general path")
     kept = [k for p in e._programs.values() for k in p.walk.tables if k[0] == "xbr-lv2"]
     check(len(kept) == 1, f"xbr: {len(kept)} geometries kept, want 1")
@@ -1070,12 +1093,12 @@ def phase_xbr_slice(gen, Engine, path):
         f"general-path blocks {general}, axis maps built once; "
         f"cuda vs cpu on 2 frames: max {dmax} step, {frac:.2e} of values; {moved:.3f} of values off the NEAREST upscale)")
     es = _xbr_engine(Engine, path, VIEWPORT, small=1.0)
-    xe.LAUNCHES = 0
+    xe.LAUNCHES = xf.LAUNCHES = 0
     out = es.apply(frames, output="u8")
     torch.cuda.synchronize()
     _engine_ok(es, "xbr small_details=1")
-    check(xe.LAUNCHES == 1 and tuple(out.shape) == (XBR_BATCH, vh, vw, 3),
-          f"xbr small_details=1: launches {xe.LAUNCHES}, shape {tuple(out.shape)}")
+    check(xe.LAUNCHES == xf.LAUNCHES == 1 and tuple(out.shape) == (XBR_BATCH, vh, vw, 3),
+          f"xbr small_details=1: launches {xe.LAUNCHES}, {xf.LAUNCHES}, shape {tuple(out.shape)}")
     d = (out.int() - e.apply(frames, output="u8").int()).abs()
     say("14", f"xbr-lv2 small_details=1, {XBR_BATCH} frames: ok (launches 1; differs from "
         f"small_details=0 in {float((d != 0).float().mean()):.2e} of values)")
@@ -1572,6 +1595,7 @@ _COUNTERS = {
     "warp_sample": ("warp_sample", "LAUNCHES", "warp_sample_kernel"),
     "blur_groups_v2": ("blur_groups", "LAUNCHES", "blur_groups_kernel"),
     "xbr_epilogue": ("xbr_epilogue", "LAUNCHES", "xbr_epilogue_kernel"),
+    "xbr_front": ("xbr_front", "LAUNCHES", "xbr_front_kernel"),
     "mirrors": ("mirrors", "LAUNCHES", "mirror_kernel"),
     "fma": ("fma", "LAUNCHES", "::fma_"),
 }
@@ -1604,6 +1628,7 @@ _OPS = {
     "warp_sample": ("warp_sample", "_warp_sample_op"),
     "blur_groups_v2": ("blur_groups", "_blur_groups_op"),
     "xbr_epilogue": ("xbr_epilogue", "_xbr_epilogue_op"),
+    "xbr_front": ("xbr_front", "_xbr_front_op"),
     "mirrors": ("mirrors", "_mirror_op"),
     "fma": ("fma", "_fma_call"),  # both routes, the direct launch and the operator
 }
@@ -2674,6 +2699,7 @@ def main() -> int:
     from retrocapture_tpu_torch.ops.cuda import resample as rs
     from retrocapture_tpu_torch.ops.cuda import warp_sample as ws
     from retrocapture_tpu_torch.ops.cuda import xbr_epilogue as xe  # bound to policy's functions before phase 5
+    from retrocapture_tpu_torch.ops.cuda import xbr_front as xf
 
     # Phase 2: build.
     secs = _build.build_all()
@@ -2860,9 +2886,10 @@ def main() -> int:
         from _xbr_standin import write_standin as write_xbr_standin
 
         xpath = write_xbr_standin(td)
-        xb_err, (xS, xmaps) = phase_xbr_kernel(gen, Engine, xpath)
+        xb_err, xf_err, (xS, xmaps) = phase_xbr_kernel(gen, Engine, xpath)
         with env(RCTPU_REPLAY="0"):
-            xeng, xframes, launches["xbr_epilogue"] = phase_xbr_slice(gen, Engine, xpath)
+            xeng, xframes, xlaunches = phase_xbr_slice(gen, Engine, xpath)
+        launches.update(xlaunches)
         say("13-14", f"main-path launches: {launches}")
 
         # Phase 15: the xbr kernel against the plain tail, in turns, at the
@@ -2874,6 +2901,28 @@ def main() -> int:
         )
         say("15", f"xbr_epilogue S {tuple(xS.shape)} -> [1,{VIEWPORT[1]},{VIEWPORT[0]},4]: device time kernel "
             f"{xb_ms:.4f} ms, plain tail {xb_plain:.3f} ms  ({card})")
+        # The front section's launch of the batch, as the slice's walk
+        # makes it: bit-equal to its plain version, then timed in turns.
+        with launched(xf, "_xbr_front_op") as fcalls, env(RCTPU_REPLAY="0"):
+            xeng.apply(xframes, output="u8")
+        check(len(fcalls) == 1, f"xbr front: {len(fcalls)} launches in a walked apply, want 1")
+        fargs = fcalls[0]
+        got, want = xf._xbr_front_op(*fargs), _xbr_front_plain(fargs)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(got, want)), f"xbr front [{XBR_BATCH}]: not bit-equal to plain "
+              f"(max |d| {float((got - want).abs().max()):.3e})")
+        xf_err = max(xf_err, float((got - want).abs().max()))
+        xf_shape = tuple(got.shape)
+        del got, want
+        xf_plain, xf_ms = in_turns(
+            lambda: _xbr_front_plain(fargs), lambda: xf._xbr_front_op(*fargs),
+            50, device_ms, kernel_timer=launch_timer("xbr_front"), plain_iters=2,
+        )
+        xf_bound = bound(nbytes(fargs[0][..., :3], *fargs[1:7]) + 4 * xf_shape[0] * 19 * xf_shape[2] * xf_shape[3],
+                         (4 * 93 + 15) * xf_shape[0] * xf_shape[2] * xf_shape[3])
+        say("15", f"xbr_front {tuple(fargs[0].shape)} -> S {xf_shape}: device time kernel {xf_ms:.4f} ms (bound "
+            f"{xf_bound[0]:.4f} ms by {xf_bound[1]}, {100.0 * xf_bound[0] / xf_ms:.1f}%), plain {xf_plain:.3f} ms  "
+            f"({card})")
         with env(RCTPU_REPLAY="0"):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2968,7 +3017,7 @@ def main() -> int:
         for k, n in rp_launches.items():
             launches[k] += n
         check(rp_launches["resample_u8"] > 0, f"23: the blit was not launched on the replayed paths ({rp_launches})")
-        for k in ("warp_sample", "blur_groups_v2", "xbr_epilogue", "mirrors", "fma"):
+        for k in ("warp_sample", "blur_groups_v2", "xbr_epilogue", "xbr_front", "mirrors", "fma"):
             check(in_graph[k] > 0, f"23: {k} ran in no graph on the replayed paths ({in_graph})")
         say("23", f"launch calls on the replayed paths: {rp_launches}; kernel runs inside the graphs of one "
             f"replayed apply a path: {in_graph}")
@@ -3011,6 +3060,10 @@ def main() -> int:
         # (4 ramps of 7, 4 flag products, 3 max), 72 for the mixes, 17 for
         # c_df and the select, 9 for the last mix.
         "xbr_epilogue": bound(nbytes(xS, xmaps.bx, xmaps.fpx, xmaps.fpy) + 4 * 65 + px * 16, 253 * px),
+        # The batch's launch: the source's 3 channels read once, the index
+        # maps, S written once; 4 corners x 93 operations and 15 colour
+        # scales an S pixel (bench_torch/work/xbr_front.py).
+        "xbr_front": xf_bound,
     }
 
     bounds["mirrors"] = (mirror_calls["crt-mattias"]["bound_ms"], mirror_calls["crt-mattias"]["bound_by"])
@@ -3049,6 +3102,11 @@ def main() -> int:
                              launches[f"blur_groups_{mode}"], blur_err[mode], *blur_ms[mode], "blur_groups", None))
     kernels.append(entry("xbr_epilogue", "xbr_epilogue.cu", "xbr_epilogue.py:58", launches["xbr_epilogue"], xb_err,
                          xb_ms, xb_plain, "xbr_epilogue", None))
+    # The port's front section kernel, at the batch's launch; library_ms
+    # None (no torch call computes the edge rules).
+    kernels.append(entry("xbr_front", "xbr_front.cu", XBR_FRONT_REPLACE, launches["xbr_front"], xf_err, xf_ms,
+                         xf_plain, "xbr_front", None))
+    kernels[-1]["launch_shape"] = list(xf_shape)
     # The port's own kernel: crt-mattias's output-gamma pow, nnedi3's exp
     # beside it, both at the call a walked apply makes; library_ms None (no
     # torch call computes these bits).

@@ -330,9 +330,10 @@ def _mattias_kernel(ctx, sh):
 # ---------------------------------------------------------------------------
 # xbr-lv2 (shaders_glsl/xbr/shaders/xbr-lv2.glsl): every NEAREST tap index
 # is an integer offset of the base source texel, so the tap and
-# edge-detection section runs at [output rows, source columns] and only the
-# fp-ramp blend is full resolution (the CUDA epilogue, ops/cuda/
-# xbr_epilogue.py). The reference's XLA tails (the one-hot matmul and the
+# edge-detection section runs at [output rows, source columns] (the CUDA
+# front section, ops/cuda/xbr_front.py, whose plain version is _xbr_planes)
+# and only the fp-ramp blend is full resolution (the CUDA epilogue,
+# ops/cuda/xbr_epilogue.py). The reference's XLA tails (the one-hot matmul and the
 # RCTPU_XBR=dense|phase forms) exist for TPU gathers and are not ported:
 # the epilogue takes the 19 planes straight from the front section.
 
@@ -549,10 +550,12 @@ def _xbr_planes(tex, gathers, eq_thr, lv2_cf, small, y_weight, quantized: bool):
 
 
 def _xbr_lv2_kernel(ctx, sh):
-    """xbr-lv2.glsl on the kernel library: the front section (torch, at
-    [output rows, source columns]) and the epilogue (the CUDA kernel on
-    the card). Returns None when infeasible."""
+    """xbr-lv2.glsl on the kernel library: the front section at [output
+    rows, source columns] (``rctpu::xbr_front``, whose plain version is
+    ``_xbr_planes``) and the epilogue (``rctpu::xbr_epilogue``), each a
+    CUDA kernel on the card. Returns None when infeasible."""
     from retrocapture_tpu_torch.ops.cuda import xbr_epilogue as xe
+    from retrocapture_tpu_torch.ops.cuda import xbr_front as xf
 
     cfg = ctx.program.preset.passes[ctx.i]
     if cfg.filter_linear or cfg.wrap_mode != "clamp_to_edge":
@@ -583,8 +586,8 @@ def _xbr_lv2_kernel(ctx, sh):
     if geo is _INFEASIBLE:
         return None
     gathers, maps = geo
-    S = _xbr_planes(tex, gathers, eq_thr, lv2_cf, small, y_weight, ctx.input_binding.quantized)
-    return xe.xbr_epilogue(S[None], maps)[0]
+    S = xf.xbr_front(tex[None], gathers, eq_thr, lv2_cf, small, y_weight, ctx.input_binding.quantized)
+    return xe.xbr_epilogue(S, maps)[0]
 
 
 def _xbr_geometry(ctx, ow: int, oh: int, w: int, h: int, dev):

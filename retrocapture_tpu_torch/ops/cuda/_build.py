@@ -43,11 +43,12 @@ KERNELS = {
     "xbr_epilogue": ("xbr_epilogue_launch", [_P] * 8 + [_I] * 7 + [_P]),
     "mirrors": ("mirrors_launch", [_P, _P, _L, _I, _F, _P]),
     "fma": ("fma_launch", [_P, _P, _P, _F, _F, _F, _P, _I, _P, _I, _P]),
+    "xbr_front": ("xbr_front_launch", [_P] + [_L] * 4 + [_P] * 8 + [_I] * 8 + [_P]),
 }
-# nvcc flags of one source beyond NVCC_FLAGS: the mirrors' and the fma
-# operator's roundings are all explicit, and no multiply-add may be
-# contracted behind them.
-EXTRA_FLAGS = {"mirrors": ["-fmad=false"], "fma": ["-fmad=false"]}
+# nvcc flags of one source beyond NVCC_FLAGS: the mirrors', the fma
+# operator's and the xbr front section's roundings are all explicit, and no
+# multiply-add may be contracted behind them.
+EXTRA_FLAGS = {"mirrors": ["-fmad=false"], "fma": ["-fmad=false"], "xbr_front": ["-fmad=false"]}
 
 NVCC_FLAGS = [
     "-gencode",

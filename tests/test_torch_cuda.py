@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import _xbr_front_cases as front_cases
 import retrocapture_tpu_torch as torch_pkg
 from _mattias_standin import write_standin
 from _nnedi3_standin import write_chain as write_nnedi3_chain
@@ -27,6 +28,7 @@ from retrocapture_tpu_torch.ops.cuda import mirrors as mr
 from retrocapture_tpu_torch.ops.cuda import resample as rs
 from retrocapture_tpu_torch.ops.cuda import warp_sample as ws
 from retrocapture_tpu_torch.ops.cuda import xbr_epilogue as xe
+from retrocapture_tpu_torch.ops.cuda import xbr_front as xf
 from retrocapture_tpu_torch.ops.sampling import WRAP_MODES, _axis_matrix
 
 pytestmark = pytest.mark.cuda
@@ -539,6 +541,132 @@ def test_xbr_slice_keeps_its_maps_on_the_card(cuda_device, tmp_path):
     assert _kept_xbr(e) == {}
     cpu.set_viewport(320, 240)
     assert torch.equal(e.apply(frames.to(cuda_device), output="u8").cpu(), cpu.apply(frames, output="u8"))
+
+
+# -- the xbr front section kernel (csrc/xbr_front.cu) --------------------------
+
+XBR_FRONT_PARAMS = (np.float32(15.0), np.float32(2.0))  # XBR_EQ_THRESHOLD, XBR_LV2_COEFFICIENT
+
+
+def _xbr_front(tex, g, small, quantized, plain=False):
+    if plain:
+        cols, rows = g
+        return xf.xbr_front_plain(tex, cols, [rows[k] for k in (-2, -1, 0, 1, 2)], *XBR_FRONT_PARAMS, small,
+                                  np.float32(48.0), quantized)
+    return xf.xbr_front(tex, g, *XBR_FRONT_PARAMS, small, np.float32(48.0), quantized)
+
+
+# (batch, h, w, oh, row maps, channels): the cell's shape; W not a multiple
+# of the tile; OH below a block's rows; 3x and non-integer row ratios;
+# a downscale; scattered rows; a 3-channel texture.
+XBR_FRONT_SHAPES = [
+    pytest.param(64, 240, 320, 1080, "nearest", 4, id="cell-64x240x320-1080"),
+    pytest.param(2, 30, 100, 90, "nearest", 4, id="w100-r3"),
+    pytest.param(3, 40, 50, 10, "nearest", 4, id="oh10-downscale"),
+    pytest.param(2, 48, 72, 131, "nearest", 3, id="non-integer-c3"),
+    pytest.param(1, 60, 80, 270, "nearest", 4, id="r4.5"),
+    pytest.param(2, 20, 33, 64, "random", 4, id="random-rows"),
+]
+
+
+@pytest.mark.parametrize("small", [0.0, 1.0])
+@pytest.mark.parametrize("quantized", [True, False], ids=["u8-grid", "f32"])
+@pytest.mark.parametrize("b,h,w,oh,kind,c", XBR_FRONT_SHAPES)
+def test_xbr_front_kernel_equals_plain(cuda_device, b, h, w, oh, kind, c, quantized, small):
+    """One launch a batch; S bit-equal to ``_xbr_planes`` on the card and
+    on the CPU (NaN where it is NaN), with NaN and +-inf texels; then the
+    same inputs without them under ``torch.equal``."""
+    rng = np.random.default_rng(b + h + w + oh)
+    for specials in (True, False):
+        tex = torch.from_numpy(front_cases.texture(rng, b, h, w, c, quantized, specials))
+        g = front_cases.gathers(h, w, oh, cuda_device, kind, rng)
+        gc = (g[0].cpu(), {k: v.cpu() for k, v in g[1].items()})
+        before = xf.LAUNCHES
+        got = _xbr_front(tex.to(cuda_device), g, small, quantized)
+        assert xf.LAUNCHES == before + 1 and got.shape == (b, 19, oh, w)
+        want = _xbr_front(tex.to(cuda_device), g, small, quantized, plain=True)
+        cpu = 4 if b > 4 else b  # the CPU's plain version on the first frames
+        want_cpu = _xbr_front(tex[:cpu], gc, small, quantized)
+        torch.cuda.synchronize()
+        if specials:
+            assert _same_bits(got, want) and _same_bits(got[:cpu].cpu(), want_cpu)
+        else:
+            assert torch.equal(got, want) and torch.equal(got[:cpu].cpu(), want_cpu)
+        codes = got[:, 15:]
+        assert torch.equal(codes, codes.round()) and 0 <= float(codes.min()) and float(codes.max()) <= 31
+
+
+def test_xbr_front_kernel_reads_strided_textures(cuda_device):
+    """A texture that is a view (channels 1-4 of six, frames and rows
+    swapped) is read through its strides: the contiguous copy's S."""
+    rng = np.random.default_rng(16)
+    wide = torch.from_numpy(front_cases.texture(rng, 30, 3, 40, c=6)).to(cuda_device)
+    tex = wide.permute(1, 0, 2, 3)[..., 1:5]
+    g = front_cases.gathers(30, 40, 70, cuda_device)
+    got = _xbr_front(tex, g, 0.0, True)
+    assert not tex.is_contiguous() and _same_bits(got, _xbr_front(tex.contiguous(), g, 0.0, True))
+    assert _same_bits(got, _xbr_front(tex, g, 0.0, True, plain=True))
+
+
+def test_xbr_front_batching_rule_launches(cuda_device):
+    """Under torch.func.vmap, frames that share the gathers are one launch
+    and frames with gathers of their own one launch each; each frame gets
+    the bits of its own launch."""
+    rng = np.random.default_rng(17)
+    b, h, w, oh = 4, 30, 50, 96
+    tex = torch.from_numpy(front_cases.texture(rng, b, h, w)).to(cuda_device)
+    g = front_cases.gathers(h, w, oh, cuda_device)
+    before = xf.LAUNCHES
+    got = torch.func.vmap(lambda t: _xbr_front(t[None], g, 0.0, True)[0])(tex)
+    assert xf.LAUNCHES == before + 1
+    want = torch.cat([_xbr_front(t[None], g, 0.0, True) for t in tex])
+    assert _same_bits(got, want)
+    per = [front_cases.gathers(h, w, oh, cuda_device, "random", rng) for _ in range(b)]
+    cols = torch.stack([p[0] for p in per])
+    rows = [torch.stack([p[1][k] for p in per]) for k in (-2, -1, 0, 1, 2)]
+
+    def one(t, c, *r):
+        return _xbr_front(t[None], (c, dict(zip((-2, -1, 0, 1, 2), r))), 1.0, True)[0]
+
+    before = xf.LAUNCHES
+    got = torch.func.vmap(one)(tex, cols, *rows)
+    assert xf.LAUNCHES == before + b
+    want = torch.cat([_xbr_front(tex[i:i + 1], per[i], 1.0, True) for i in range(b)])
+    assert _same_bits(got, want)
+
+
+def test_xbr_front_wrapper_raises(cuda_device):
+    rng = np.random.default_rng(18)
+    tex = torch.from_numpy(front_cases.texture(rng, 1, 12, 16)).to(cuda_device)
+    g = front_cases.gathers(12, 16, 24, cuda_device)
+    cols, rows = g
+    before = xf.LAUNCHES
+    with pytest.raises(TypeError):
+        _xbr_front(tex.double(), g, 0.0, True)
+    with pytest.raises(ValueError):
+        _xbr_front(tex[0], g, 0.0, True)
+    with pytest.raises(ValueError):
+        _xbr_front(tex, (cols[:-2], rows), 0.0, True)
+    with pytest.raises(ValueError):
+        _xbr_front(tex, (cols.cpu(), rows), 0.0, True)  # gathers on another device
+    with pytest.raises(RuntimeError):
+        _xbr_front(tex.to("meta"), (cols.to("meta"), {k: v.to("meta") for k, v in rows.items()}), 0.0, True)
+    assert xf.LAUNCHES == before
+
+
+def test_xbr_slice_launches_the_front_kernel(cuda_device, tmp_path):
+    """The xbr-lv2 slice on the card runs its front section as the kernel,
+    once a batch (walked, then captured), and equals the CPU port."""
+    path = write_xbr_standin(str(tmp_path))
+    frames = torch.from_numpy(np.random.default_rng(19).integers(0, 256, (3, 60, 80, 3), dtype=np.uint8))
+    e = torch_pkg.Engine(viewport=(480, 270), device=cuda_device)
+    assert e.load_preset(path), e.last_error
+    before = xf.LAUNCHES
+    got = e.apply(frames.to(cuda_device), output="u8")
+    assert xf.LAUNCHES == before + 2 and e.last_error is None
+    cpu = torch_pkg.Engine(viewport=(480, 270), device="cpu")
+    assert cpu.load_preset(path)
+    assert torch.equal(got.cpu(), cpu.apply(frames, output="u8"))
 
 
 @pytest.mark.parametrize("seed", range(4))
