@@ -1,5 +1,5 @@
-"""The stand-ins for the nnedi3 shaders that the port's tests and
-chip_smoke.py drive.
+"""The stand-ins for the nnedi3 shaders that the port's tests (the card's
+too) and tools/torch_kernel_table.py drive.
 
 The shaders are in the RetroArch corpus, which the repo does not carry.
 The nnedi3 hand kernels never evaluate the fragment body: they read the

@@ -1,5 +1,5 @@
-"""The stand-ins for the ntsc 2-phase shaders that the port's tests and
-chip_smoke.py drive.
+"""The stand-ins for the ntsc 2-phase shaders that the port's tests (the
+card's too) drive.
 
 The shaders are in the RetroArch corpus, which the repo does not carry.
 The ntsc hand kernels never evaluate the fragment body: pass 1 reads the

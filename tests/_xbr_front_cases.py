@@ -1,5 +1,5 @@
 """Inputs of the xbr-lv2 front section (``rctpu::xbr_front``) for the
-tests and chip_smoke.py: textures and the index tensors of
+CPU and card tests: textures and the index tensors of
 ``graph.kernels._xbr_gathers``.
 
 ``texture`` gives textures on the k/255 grid (``quantized``, what the u8

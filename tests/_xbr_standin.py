@@ -1,5 +1,5 @@
-"""The stand-in for xbr-lv2.glsl that the port's tests and chip_smoke.py
-drive.
+"""The stand-in for xbr-lv2.glsl that the port's tests (the card's too)
+and tools/torch_kernel_table.py drive.
 
 The shader is in the RetroArch corpus, which the repo does not carry.
 The xbr-lv2 hand kernel never evaluates the fragment body: it reads the

@@ -1,23 +1,37 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port on the card: its CUDA kernels against their plain versions,
+and each path of the program and its front door at the benchmark's
+shapes against the port's own CPU run.
 
 Marked ``cuda``: without a CUDA device every test here skips. The file
 imports neither jax nor the JAX package, so it runs on a machine that
 has only the port:
 
-    python -m pytest --noconftest tests/test_torch_cuda.py -q
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 (``--noconftest`` because tests/conftest.py configures jax.)
 """
+
+import contextlib
+import gc
+import json
+import warnings
+import zlib
+from pathlib import Path
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import pytest
 import torch
 
+import _card
 import _xbr_front_cases as front_cases
 import retrocapture_tpu_torch as torch_pkg
 from _mattias_standin import write_standin
+from _nnedi3_standin import NAMES as NNEDI3_NAMES
 from _nnedi3_standin import write_chain as write_nnedi3_chain
+from _ntsc_standin import PASS1, PASS2
 from _ntsc_standin import write_chain as write_ntsc_chain
+from _presets import write_mip_presets, write_warp_preset, write_xphase_preset
 from _xbr_standin import write_standin as write_xbr_standin
 from retrocapture_tpu_torch import policy
 from retrocapture_tpu_torch.graph import kernels as tk
@@ -29,7 +43,7 @@ from retrocapture_tpu_torch.ops.cuda import resample as rs
 from retrocapture_tpu_torch.ops.cuda import warp_sample as ws
 from retrocapture_tpu_torch.ops.cuda import xbr_epilogue as xe
 from retrocapture_tpu_torch.ops.cuda import xbr_front as xf
-from retrocapture_tpu_torch.ops.sampling import WRAP_MODES, _axis_matrix
+from retrocapture_tpu_torch.ops.sampling import WRAP_MODES, _axis_matrix, _max_lod
 
 pytestmark = pytest.mark.cuda
 
@@ -47,7 +61,9 @@ GEOMETRIES = [
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU form)")
-    return torch.device("cuda")
+    yield torch.device("cuda")
+    gc.collect()  # what the test's engines kept (programs, graphs) goes back to the card
+    torch.cuda.empty_cache()
 
 
 def _blit_axes(src, dst):
@@ -363,6 +379,14 @@ BLIT_EDGES = [
     pytest.param(2, 270, 480, 270, 480, 3, id="near-identity"),
     pytest.param(2, 1080, 640, 1080, 1920, 3, id="ntsc-x-only-r3"),
     pytest.param(2, 480, 640, 1080, 1920, 3, id="nnedi3-r3-r2.25"),
+    # The blit's other geometries at full size: the 1080p -> 1080p blit of a
+    # pass at the viewport (f32 coordinates keep it from the identity), the
+    # 320x240 upscale at batch 8, x ratio 3 with y ratio 4.5, x-only r 6, r 2.
+    pytest.param(2, 1080, 1920, 1080, 1920, 3, id="1080p-to-1080p"),
+    pytest.param(8, 240, 320, 1080, 1920, 3, id="b8-r6"),
+    pytest.param(2, 240, 640, 1080, 1920, 3, id="r3-y4.5"),
+    pytest.param(2, 240, 320, 240, 1920, 3, id="x-only-r6"),
+    pytest.param(2, 96, 128, 192, 256, 3, id="r2"),
 ]
 
 
@@ -776,7 +800,8 @@ def test_stream_lends_buffers_the_caller_may_keep(cuda_device, monkeypatch):
 
 
 def test_apply_streams_on_the_card_matches_the_cpu_port(cuda_device):
-    """Within chip_smoke's gate (<= 1 u8 step in <= 0.1% of values), and
+    """Within the card's gate against the CPU port (<= 1 u8 step in <= 0.1%
+    of values), and
     stream s equal to an engine of its own, bit for bit."""
     import os
 
@@ -798,8 +823,6 @@ def test_apply_streams_on_the_card_matches_the_cpu_port(cuda_device):
 
 
 def test_warped_mip_launches_once_per_level(cuda_device, tmp_path):
-    from chip_smoke import write_mip_presets
-
     _, warp = write_mip_presets(tmp_path)
     frames = np.random.default_rng(23).integers(0, 256, (2, 48, 64, 3), dtype=np.uint8)
     e = torch_pkg.Engine(viewport=(160, 120), device="cuda")
@@ -1202,20 +1225,21 @@ def _fma_edges(dev):
 
 @pytest.mark.parametrize("mode", list(FMA_MODES))
 def test_fma_kernel_equals_plain(cuda_device, mode):
-    """2^24 random bit-pattern triples and the edges: bit-equal to the plain
+    """2^26 random bit-pattern triples and the edges: bit-equal to the plain
     version on the card off the NaNs, NaN where it is; the tie triple's
     modes differ for c = +2^-80 alone."""
     op, plain = FMA_MODES[mode]
     g = torch.Generator(device=cuda_device)
     g.manual_seed(31)
-    a, b, c = (torch.randint(-2**31, 2**31 - 1, (1 << 24,), generator=g, device=cuda_device, dtype=torch.int32)
+    a, b, c = (torch.randint(-2**31, 2**31 - 1, (1 << 26,), generator=g, device=cuda_device, dtype=torch.int32)
                .view(torch.float32) for _ in range(3))
     before = fm.LAUNCHES
     for x, y, z in ((a, b, c), _fma_edges(cuda_device)):
         assert _same_bits(op(x, y, z), plain(x, y, z)), mode
     assert fm.LAUNCHES == before + 2
     x, y, z = (t[-2:] for t in _fma_edges(cuda_device))
-    assert (fm.fma32(x, y, z) != fm.fmaf32(x, y, z)).tolist() == [True, False]
+    assert fm.fma32(x, y, z).tolist() == [1 + 2.0**-11] * 2
+    assert fm.fmaf32(x, y, z).tolist() == [1 + 2.0**-11 + 2.0**-23, 1 + 2.0**-11]
 
 
 @pytest.mark.parametrize("mode", list(FMA_MODES))
@@ -1225,8 +1249,9 @@ def test_fma_kernel_broadcast_forms(cuda_device, mode):
     [H, W, 3], an expanded view, a strided channel, a transposed view, an
     operand 4 bytes off a 16-byte boundary (the dense path without 16-byte
     accesses), odd sizes, the main paths' tile-path forms and a 4-D form
-    (the general path), on both routes (the wrapper's direct launch and
-    the operator): bit-equal to plain, the output contiguous."""
+    (the general path), on both routes (the wrapper's direct launch, which
+    makes no call of the operator, and the operator): bit-equal to plain,
+    the output contiguous."""
     op, plain = FMA_MODES[mode]
     g = torch.Generator(device=cuda_device)
     g.manual_seed(32)
@@ -1256,7 +1281,10 @@ def test_fma_kernel_broadcast_forms(cuda_device, mode):
     for k, (a, b, c) in enumerate(forms):
         want = plain(a, b, c)
         (ta, sa), (tb, sb), (tc, sc) = (fm._operand(x, n) for x, n in zip((a, b, c), "abc"))
-        for got in (op(a, b, c), fm._fma_op(ta, tb, tc, sa, sb, sc, 0 if mode == "fma32" else 1)):
+        with _card.launched(fm, "_fma_op") as routed:
+            direct = op(a, b, c)
+        assert not routed, f"form {k} went through the operator on a plain call"
+        for got in (direct, fm._fma_op(ta, tb, tc, sa, sb, sc, 0 if mode == "fma32" else 1)):
             assert got.shape == want.shape and got.is_contiguous(), k
             assert _same_bits(got, want), (mode, k)
     assert fm.general_launches() - general == 2  # the 4-D form, on both routes
@@ -1425,3 +1453,631 @@ def test_mirror_kernel_exponent_bytes(cuda_device, op):
         m = torch.arange(1 << 23, dtype=torch.int32, device=cuda_device) | (byte << 23)
         x = torch.cat([m, m | torch.iinfo(torch.int32).min]).view(torch.float32)
         assert _same_bits(mr._mirror(x, op, c), mr.mirror_plain(x, op, c)), (op, hex(byte))
+
+
+# -- the main paths at full size ------------------------------------------------
+#
+# Each path of the program at its operating point (a 320x240 source to a
+# 1920x1080 viewport, u8 out) through two engines on the card: one that
+# replays its chain by CUDA graph and one that walks it (RCTPU_REPLAY=0).
+# The walked apply after the first is the one counted and recorded.
+
+VIEWPORT = (1920, 1080)  # (W, H)
+SRC_HW = (240, 320)
+F32_FRAMES = 8  # the f32 apply of each engine: a batch size of its own where the path's is larger
+FEEDBACK = Path(__file__).resolve().parents[1] / "assets" / "presets" / "feedback-ghost.glslp"
+
+
+class MainPath(NamedTuple):
+    write: Callable  # tmp_path -> the preset's path
+    batch: int
+    launches: dict  # {kernel: launch calls of a walked apply after the first}
+    fmt: str = "rgb"
+    traced: Optional[tuple] = None  # (parameter, value set between the first and the second apply)
+    params: dict = {}  # const parameters set before the first apply
+    env: dict = {}
+    some: tuple = ()  # kernels that launch at least once a walked apply
+    entries: Optional[tuple] = None  # (kernel-library entry names, engaged calls a walked apply)
+    blit_from: Optional[tuple] = None  # (h, w) of the blit's input
+    looks: Callable = lambda run: True  # the output is the shader's, not a passthrough
+
+
+def _looks_curved(run):
+    """crt-mattias: a black corner outside the curved screen, a lit centre."""
+    return int(run.out[:, 0, 0].max()) == 0 and float(run.out[:, VIEWPORT[1] // 2].float().mean()) > 5
+
+
+def _looks_xbr(run):
+    """xbr-lv2 blends the NEAREST upscale at edges, and its entry keeps the
+    axis maps of its one geometry."""
+    (h, w), (vw, vh) = SRC_HW, VIEWPORT
+    ys = (torch.arange(vh, device=run.out.device) * h) // vh
+    xs = (torch.arange(vw, device=run.out.device) * w) // vw
+    moved = float((run.out[:2] != run.frames[:2][:, ys][:, :, xs]).float().mean())
+    return moved > 0.05 and len(_kept_xbr(run.engine)) == 1
+
+
+def _looks_mixed(run):
+    """feedback-ghost's ``mix`` goes through ``rctpu::fma``: its form with the
+    channel weights as a [4] vector."""
+    return any(t is not None and tuple(t.shape) == (4,) for _, a in run.rec["fma"].values() for t in a[:3])
+
+
+def _warp_taps(run, linear, wrap):
+    return all(a[3] is linear and a[4] == wrap and tuple(a[1].shape) == (VIEWPORT[1], VIEWPORT[0])
+               for a in run.rec["warp_sample"])
+
+
+def _looks_warped(run):
+    """warp-curve: a black corner outside the warped screen, its tap LINEAR
+    clamp_to_border."""
+    return int(run.out[:, 0, 0].max()) == 0 and _warp_taps(run, True, "clamp_to_border")
+
+
+def _looks_mip_warped(run):
+    """mip-warp samples every level of the pyramid, LINEAR repeat."""
+    (h, w) = SRC_HW
+    levels = sorted({tuple(a[0].shape[1:3]) for a in run.rec["warp_sample"]}, reverse=True)
+    want = [(max(h >> k, 1), max(w >> k, 1)) for k in range(MIP_LEVELS)]
+    return levels == want and _warp_taps(run, True, "repeat")
+
+
+def _looks_lit(run):
+    return float(run.out.float().std()) > 5.0
+
+
+def _looks_blurred(run):
+    """mip-glow samples the pyramid: the output loses the input's fine detail."""
+    return float(run.out.float().std()) < 0.6 * float(run.frames.float().std())
+
+
+def _ntsc(pass1="composite", pass2="gamma"):
+    return lambda tmp: write_ntsc_chain(str(tmp), 4 * SRC_HW[1], pass1, pass2)
+
+
+def _nnedi3(nns, kind):
+    return lambda tmp: write_nnedi3_chain(str(tmp), nns, kind, height=2 * SRC_HW[0])
+
+
+NTSC_ENTRIES = tuple(PASS1.values()) + tuple(PASS2.values())
+MIP_LEVELS = _max_lod(*SRC_HW) + 1
+
+MAIN_PATHS = {
+    "feedback-ghost-nv12": MainPath(lambda tmp: str(FEEDBACK), 128, {"resample_u8": 1}, fmt="nv12", some=("fma",),
+                                    looks=_looks_mixed),
+    "feedback-ghost-nv12 traced": MainPath(lambda tmp: str(FEEDBACK), 128, {"resample_u8": 1}, fmt="nv12",
+                                           traced=("GHOST", 0.8), some=("fma",), looks=_looks_mixed),
+    "warp-curve traced": MainPath(write_warp_preset, 8, {"warp_sample": 1, "resample_u8": 1}, traced=("CURV", 0.5),
+                                  looks=_looks_warped),
+    # Five mirrors a walk (the pows 2.2, 0.9, 0.45, the scanline and hash
+    # sines; the vignette's 0.3 pow is kept by the first walk).
+    "crt-mattias": MainPath(write_standin, 32, {"blur_groups": 1, "mirrors": 5, "resample_u8": 1}, some=("fma",),
+                            looks=_looks_curved),
+    "crt-mattias traced": MainPath(write_standin, 32, {"blur_groups": 1, "resample_u8": 1}, traced=("CURVATURE", 0.8),
+                                   some=("fma", "mirrors"), looks=_looks_curved),
+    "crt-mattias RCTPU_BLUR=v1": MainPath(write_standin, 32, {"blur_groups": 1, "resample_u8": 1},
+                                          env={"RCTPU_BLUR": "v1"}, looks=_looks_curved),
+    # A warp launch a group for the batch, on single-channel textures.
+    "crt-mattias RCTPU_MATTIAS=preconv": MainPath(write_standin, 32,
+                                                  {"warp_sample": 9, "blur_groups": 0, "resample_u8": 1},
+                                                  env={"RCTPU_MATTIAS": "preconv"}, looks=_looks_curved),
+    "xbr-lv2": MainPath(write_xbr_standin, 64, {"xbr_front": 1, "xbr_epilogue": 1, "resample_u8": 1},
+                        looks=_looks_xbr),
+    "xbr-lv2 small_details=1": MainPath(write_xbr_standin, 64, {"xbr_front": 1, "xbr_epilogue": 1, "resample_u8": 1},
+                                        params={"small_details": 1.0}, looks=_looks_xbr),
+    # Two walks an apply (the fc-period groups), two passes each.
+    "ntsc-320px": MainPath(_ntsc(), 128, {"resample_u8": 1}, entries=(NTSC_ENTRIES, 4), some=("mirrors",),
+                           blit_from=(VIEWPORT[1], 2 * SRC_HW[1]), looks=_looks_lit),
+    "ntsc-320px svideo + gamma": MainPath(_ntsc("svideo"), 8, {"resample_u8": 1}, entries=(NTSC_ENTRIES, 4),
+                                          looks=_looks_lit),
+    "ntsc-320px composite + plain": MainPath(_ntsc("composite", "plain"), 8, {"resample_u8": 1},
+                                             entries=(NTSC_ENTRIES, 4), looks=_looks_lit),
+    "ntsc-320px composite + linear": MainPath(_ntsc("composite", "linear"), 8, {"resample_u8": 1},
+                                              entries=(NTSC_ENTRIES, 4), looks=_looks_lit),
+    "nnedi3 nns64 -rgb": MainPath(_nnedi3(64, "rgb"), 32, {"resample_u8": 1}, entries=(NNEDI3_NAMES, 2),
+                                  some=("mirrors",), blit_from=(2 * SRC_HW[0], 2 * SRC_HW[1]), looks=_looks_lit),
+    "nnedi3 nns16 -luma": MainPath(_nnedi3(16, "luma"), 8, {"resample_u8": 1}, entries=(NNEDI3_NAMES, 2),
+                                   looks=_looks_lit),
+    "mip-glow": MainPath(lambda tmp: write_mip_presets(tmp)[0], 4, {"resample_u8": 1},
+                         blit_from=(int(SRC_HW[0] * 0.3), int(SRC_HW[1] * 0.3)), looks=_looks_blurred),
+    # One warped sample a pyramid level for the batch; its level of detail
+    # takes the log2 mirror.
+    "mip-warp": MainPath(lambda tmp: write_mip_presets(tmp)[1], 4, {"warp_sample": MIP_LEVELS, "resample_u8": 1},
+                         some=("mirrors",), looks=_looks_mip_warped),
+}
+
+class _Run(NamedTuple):
+    engine: object
+    out: torch.Tensor  # the walked apply's
+    frames: torch.Tensor
+    rec: dict  # what the walked apply recorded (_recorded_walk)
+
+
+def _path_engine(case, path, device):
+    e = torch_pkg.Engine(viewport=VIEWPORT, device=device)
+    assert e.load_preset(path), e.last_error
+    e.set_input_format(case.fmt)
+    if case.traced:
+        e.set_param_mode("traced")
+    for name, value in case.params.items():
+        assert e.set_parameter(name, value)
+    return e
+
+
+def _engine_ok(e):
+    assert e.shader_active is True and e.last_error is None, e.last_error
+
+
+def _applied(e, case, out):
+    """Two applies of ``case.batch`` frames gave u8 1080p frames on the
+    card, the frame count carried."""
+    torch.cuda.synchronize()
+    _engine_ok(e)
+    assert out.shape == (case.batch, VIEWPORT[1], VIEWPORT[0], 3) and out.dtype == torch.uint8
+    assert out.device == e.device
+    assert int(e._states[SRC_HW + VIEWPORT].frame_count) == 2 * case.batch
+
+
+def _near_u8(got, want):
+    """Within 1 u8 step, in at most 0.1% of values."""
+    assert got.shape == want.shape
+    d = (got.cpu().to(torch.int32) - want.cpu().to(torch.int32)).abs()
+    share = float((d != 0).float().mean())
+    assert int(d.max()) <= 1 and share <= 1e-3, (int(d.max()), share)
+
+
+def _as_u8(x):
+    """f32 frames in [0, 1] as u8 codes (round half to even)."""
+    x = torch.as_tensor(x)
+    return torch.round(torch.clamp(x, 0.0, 1.0) * 255.0).to(torch.uint8)
+
+
+@contextlib.contextmanager
+def _vmap_fallbacks():
+    """The ops that took vmap's per-example fallback (a loop over the
+    frames, for want of a batching rule) in a block."""
+    torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.filterwarnings("always", message=".*batching rule.*")
+            ops = []
+            yield ops
+            ops.extend(str(w.message).split(".")[0] for w in caught if "batching rule" in str(w.message))
+    finally:
+        torch._C._functorch._set_vmap_fallback_warning_enabled(False)
+
+
+@contextlib.contextmanager
+def _general_paths():
+    """The work that left the kernels' fast paths in a block: the blit's and
+    the xbr epilogue's general-path units, the warp and fma kernels'
+    general-path launches, the blur kernel's wide tiles."""
+    counters = {"resample_u8": rs.general_blocks, "xbr_epilogue": xe.general_blocks, "warp_sample": ws.general_launches,
+                "fma": fm.general_launches, "blur_groups": bg.wide_tiles}
+    for f in counters.values():
+        f(reset=True)
+    taken = {}
+    yield taken
+    taken.update({k: f(reset=True) for k, f in counters.items()})
+
+
+@contextlib.contextmanager
+def _entries(names):
+    """Calls of the kernel library's entries ``names`` in a block that
+    engaged (returned a frame) and that declined."""
+    calls = {"engaged": 0, "declined": 0}
+    originals = {n: tk._REGISTRY[n] for n in names}
+
+    def wrap(fn):
+        def entry(ctx, sh):
+            out = fn(ctx, sh)
+            calls["engaged" if out is not None else "declined"] += 1
+            return out
+
+        return entry
+
+    tk._REGISTRY.update({n: wrap(fn) for n, fn in originals.items()})
+    try:
+        yield calls
+    finally:
+        tk._REGISTRY.update(originals)
+
+
+@contextlib.contextmanager
+def _kept_builds():
+    """The tables a walk builds for its program to keep (only a program's
+    first walk builds them; crt-mattias's comb mask is an fma launch), and
+    the launch calls their builds make. A build that is not kept (no
+    program, or ``keep`` false) is part of every walk and not counted."""
+    made = {"keys": [], "launches": dict.fromkeys(_card.COUNTERS, 0)}
+    real = tk._kept
+
+    def kept(key, build, keep=True):
+        if not keep or tk.walk_program() is None:
+            return real(key, build, keep)
+
+        def counted():
+            made["keys"].append(key)
+            before = _card.counts()
+            try:
+                return build()
+            finally:
+                for k, n in _card.since(before).items():
+                    made["launches"][k] += n
+
+        return real(key, counted, keep)
+
+    tk._kept = kept
+    try:
+        yield made
+    finally:
+        tk._kept = real
+
+
+@contextlib.contextmanager
+def _recorded_walk(entry_names):
+    """What one walked apply does: the recorded operator launches, the fma
+    forms, the blit's inputs and the entries' calls."""
+    from retrocapture_tpu_torch.runtime import engine as engine_module
+
+    rec = {"blits": []}
+    real_blit = engine_module.blit_u8
+
+    def blit(tex, vw, vh):
+        rec["blits"].append(tex)
+        return real_blit(tex, vw, vh)
+
+    engine_module.blit_u8 = blit
+    try:
+        with contextlib.ExitStack() as stack:
+            for k, (module, op, _) in _card.RECORDED.items():
+                rec[k] = stack.enter_context(_card.launched(module, op))
+            rec["fma"] = stack.enter_context(_card.fma_forms())
+            rec["entries"] = stack.enter_context(_entries(entry_names))
+            yield rec
+    finally:
+        engine_module.blit_u8 = real_blit
+
+
+@pytest.mark.parametrize("name", list(MAIN_PATHS))
+def test_main_path_at_full_size(cuda_device, tmp_path, monkeypatch, name):
+    """One path at the benchmark's shapes. The replayed and the walked
+    engine give the same bits on every apply (u8, and f32 on F32_FRAMES
+    frames); the walked apply launches each kernel as ``launches``
+    says, one launch for the batch, with no kernel's work on a general
+    path, no plain mirror or multiply-add on a CUDA tensor and no op on
+    vmap's per-example fallback; the replayed apply makes no launch call
+    but the blit's and runs every kernel as often as the walk launches it;
+    each recorded launch equals its plain version on its own arguments;
+    the replayed batch stays within 1 u8 step of the port's CPU run."""
+    case = MAIN_PATHS[name]
+    for k, v in case.env.items():
+        monkeypatch.setenv(k, v)
+    path = case.write(tmp_path)
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(zlib.crc32(name.encode()))
+    h, w = SRC_HW
+    shape = (case.batch, h * 3 // 2, w) if case.fmt == "nv12" else (case.batch, h, w, 3)
+    frames = [torch.randint(0, 256, shape, generator=g, device=cuda_device, dtype=torch.uint8) for _ in range(2)]
+    start = _card.counts()
+    with _card.plain_mirror_calls() as mirrors, _card.plain_fma_calls() as fmas, _vmap_fallbacks() as fallbacks, \
+            _general_paths() as general:
+        # The walk (RCTPU_REPLAY=0): the apply after the first counted and
+        # recorded; the first's launches the same but for what it built for
+        # the program to keep.
+        monkeypatch.setenv("RCTPU_REPLAY", "0")
+        e = _path_engine(case, path, cuda_device)
+        before = _card.counts()
+        with _kept_builds() as first_kept:
+            walk = [e.apply(frames[0], output="u8")]
+        first = _card.since(before)
+        if case.traced:
+            assert e.set_parameter(*case.traced)
+        before = _card.counts()
+        with _kept_builds() as later_kept, _recorded_walk(case.entries[0] if case.entries else ()) as rec:
+            walk.append(e.apply(frames[1], output="u8"))
+        walked = _card.since(before)
+        _applied(e, case, walk[-1])
+        walk.append(e.apply(frames[0][:F32_FRAMES], output="f32"))
+        temporal = e._program.uses_history() or e._program.uses_feedback()
+        assert {k: walked[k] for k in case.launches} == case.launches, walked
+        assert all(walked[k] > 0 for k in case.some), walked
+        assert later_kept["keys"] == [], f"a walk after the first built kept tables {later_kept['keys']}"
+        assert {k: n - first_kept["launches"][k] for k, n in first.items()} == walked, (first, first_kept, walked)
+        if case.entries:
+            assert rec["entries"] == {"engaged": case.entries[1], "declined": 0}
+        if case.blit_from:
+            assert [tuple(t.shape) for t in rec["blits"]] == [(case.batch,) + case.blit_from + (3,)]
+        for k in ("warp_sample", "blur_groups", "xbr_front", "xbr_epilogue"):
+            assert len(rec[k]) == walked[k] and all(a[0].shape[0] == case.batch for a in rec[k]), k
+        assert bool(torch.isfinite(walk[2]).all())
+        assert case.looks(_Run(e, walk[1], frames[1], rec))
+        del e
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # The replay: one graph, no uncaptured apply, only the blit launched,
+        # each kernel run on the device as often as the walk launches it.
+        monkeypatch.setenv("RCTPU_REPLAY", "1")
+        rp = _path_engine(case, path, cuda_device)
+        replay = [rp.apply(frames[0], output="u8")]
+        if case.traced:
+            assert rp.set_parameter(*case.traced)
+        before, replays = _card.counts(), rp.replay_stats()["replays"]
+        replay.append(rp.apply(frames[1], output="u8"))
+        calls, replays = _card.since(before), rp.replay_stats()["replays"] - replays
+        _applied(rp, case, replay[-1])
+        replay.append(rp.apply(frames[0][:F32_FRAMES], output="f32"))
+        assert {k: n for k, n in calls.items() if n} == {"resample_u8": 1}, calls
+        assert replays == (case.batch if temporal else 1)
+        # A temporal chain's frame step is one graph; a stateless chain's
+        # batch is one a batch size.
+        stats = rp.replay_stats()
+        graphs = 1 if temporal or case.batch <= F32_FRAMES else 2
+        assert stats["uncaptured_applies"] == 0 and stats["graphs_captured"] == graphs, stats
+        for k, (a, b) in enumerate(zip(replay, walk)):
+            assert torch.equal(a, b), f"apply {k}: the replay differs from the walk"
+        del walk, replay
+        assert _card.kernel_runs(lambda: rp.apply(frames[1], output="u8"), walked) == walked
+
+        # The replayed batch from a fresh state, for the CPU run below.
+        rp.reset_state()
+        replays = rp.replay_stats()["replays"]
+        replayed = rp.apply(frames[0], output="u8")
+        torch.cuda.synchronize()
+        assert rp.replay_stats()["replays"] == replays + (case.batch if temporal else 1)
+        del rp
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # The preconv option's warp launches are single-channel: the kernel's
+    # channel-at-a-time path.
+    preconv = case.env.get("RCTPU_MATTIAS") == "preconv"
+    total = _card.since(start)
+    assert general == {k: total[k] if (k, preconv) == ("warp_sample", True) else 0 for k in general}, general
+    assert not mirrors, f"a plain mirror ran on the card: {sorted(set(mirrors))}"
+    assert not fmas, f"a plain fma ran on the card: {sorted(set(fmas))}"
+    assert not fallbacks, f"vmap took its per-example fallback for {sorted(set(fallbacks))}"
+
+    # Each recorded launch against its plain version on its own arguments.
+    for k, (module, op, plain) in _card.RECORDED.items():
+        while rec[k]:
+            args = rec[k].pop()
+            assert _same_bits(getattr(module, op)(*args), plain(*args)), f"{k} {tuple(args[0].shape)}"
+    for _, args in rec.pop("fma").values():
+        operands = [s if t is None else t for t, s in zip(args[:3], args[3:6])]
+        assert _same_bits(fm._fma_call(*args), fm.fma_plain(*operands, args[6])), fm._plan(args[:3])
+    for tex in rec.pop("blits"):
+        assert torch.equal(rs.blit_u8(tex, *VIEWPORT), _two_tap(tex, *rs.blit_matrices(*tex.shape[1:3], *VIEWPORT)))
+    del rec
+
+    cpu = _path_engine(case, path, "cpu")
+    if case.traced:
+        assert cpu.set_parameter(*case.traced)
+    _near_u8(replayed[:2], cpu.apply(frames[0][:2].cpu(), output="u8"))
+    _engine_ok(cpu)
+
+
+def test_fc_grouping_equals_ungrouped_at_full_size(cuda_device, tmp_path, monkeypatch):
+    """ntsc-320px at batch 128, two applies: the fc-period grouped branch
+    (2 walks of 64 frames, each with a host FrameCount) against
+    ``RCTPU_FC_GROUP=0``, bit for bit."""
+    path = write_ntsc_chain(str(tmp_path), 4 * SRC_HW[1])
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(25)
+    frames = [torch.randint(0, 256, (128,) + SRC_HW + (3,), generator=g, device=cuda_device, dtype=torch.uint8)
+              for _ in range(2)]
+    got = {}
+    for group in ("1", "0"):
+        monkeypatch.setenv("RCTPU_FC_GROUP", group)
+        e = torch_pkg.Engine(viewport=VIEWPORT, device=cuda_device)
+        assert e.load_preset(path), e.last_error
+        got[group] = [e.apply(f, output="u8") for f in frames]
+        _engine_ok(e)
+        assert {k[-1] for k in e._programs} == ({(2, 0)} if group == "1" else {None})
+    for a, b in zip(got["1"], got["0"]):
+        assert torch.equal(a, b)
+
+
+def test_xphase_blit_on_the_slice_equals_the_dense_blit(cuda_device, tmp_path, monkeypatch):
+    """feedback-ghost with its pass at 320x240, 128 NV12 frames to 1080p:
+    under ``RCTPU_XPHASE=on`` the blit is one launch of the phase-form
+    kernel, and it writes the bytes of the dense kernel's one launch."""
+    (h, w), (vw, vh) = SRC_HW, VIEWPORT
+    path = write_xphase_preset(tmp_path, FEEDBACK.with_suffix(".glsl"), w, h)
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(11)
+    frames = torch.randint(0, 256, (128, h * 3 // 2, w), generator=g, device=cuda_device, dtype=torch.uint8)
+    outs = []
+    for mode in ("off", "on"):
+        monkeypatch.setenv("RCTPU_XPHASE", mode)
+        e = torch_pkg.Engine(viewport=VIEWPORT, device=cuda_device)
+        assert e.load_preset(path), e.last_error
+        e.set_input_format("nv12")
+        before = _card.counts()
+        outs.append(e.apply(frames, output="u8"))
+        _engine_ok(e)
+        calls = _card.since(before)
+        assert (calls["resample_u8"], calls["resample_xphase"]) == ((1, 0) if mode == "off" else (0, 1)), calls
+    assert outs[0].shape == (128, vh, vw, 3) and torch.equal(outs[0], outs[1])
+
+
+def test_mattias_variants_stay_near_the_default_blur(cuda_device, tmp_path, monkeypatch):
+    """crt-mattias at 1080p on the card: the rank-2 blur weights
+    (``RCTPU_BLUR=v1``) within 2 u8 steps of the exact ones, the
+    pre-convolved blur (``RCTPU_MATTIAS=preconv``) more than 5 steps off
+    in under 0.5% of values."""
+    path = write_standin(str(tmp_path))
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(10)
+    frames = torch.randint(0, 256, (2,) + SRC_HW + (3,), generator=g, device=cuda_device, dtype=torch.uint8)
+    outs = {}
+    for variant, env in (("default", {}), ("v1", {"RCTPU_BLUR": "v1"}), ("preconv", {"RCTPU_MATTIAS": "preconv"})):
+        with monkeypatch.context() as m:
+            for k, v in env.items():
+                m.setenv(k, v)
+            e = torch_pkg.Engine(viewport=VIEWPORT, device=cuda_device)
+            assert e.load_preset(path), e.last_error
+            outs[variant] = e.apply(frames, output="u8").to(torch.int32)
+            _engine_ok(e)
+    assert int((outs["v1"] - outs["default"]).abs().max()) <= 2
+    assert float(((outs["preconv"] - outs["default"]).abs() > 5).float().mean()) < 5e-3
+
+
+# -- the front door at full size ------------------------------------------------
+#
+# Each case returns (card, CPU) pairs of u8 frames: the card's run and the
+# port's own CPU run of the same frames.
+
+
+def _feedback_engine(device, clamp=None):
+    e = torch_pkg.Engine(viewport=VIEWPORT, device=device)
+    assert e.load_preset(str(FEEDBACK)), e.last_error
+    if clamp:
+        e.set_max_shader_resolution(*clamp)
+    return e
+
+
+def _pipeline(device):
+    from retrocapture_tpu_torch.runtime.pipeline import FramePipeline, ImageSettings
+
+    e = torch_pkg.Engine(device=device)
+    assert e.load_preset(str(FEEDBACK)), e.last_error
+    return FramePipeline(e, logical_resolution=(160, 120), overscan_percent=(2.0, 2.0), window=VIEWPORT,
+                         image=ImageSettings(brightness=1.1, contrast=0.9, flip_y=True, maintain_aspect=True))
+
+
+def _front_stream(dev, tmp_path, capsys, monkeypatch):
+    """The test pattern through ``io.queue.stream`` into a ``FramePipeline``
+    over feedback-ghost (logical 160x120, 2% overscan, brightness 1.1,
+    contrast 0.9, flip-Y, a pillarboxed 1080p window): 128 frames in
+    batches of 32 come out in order and one batch late, equal to the same
+    batches processed without the queue, and ``FrameStats`` counts them."""
+    from retrocapture_tpu_torch.io.queue import stream
+    from retrocapture_tpu_torch.io.testpattern import TestPatternSource
+
+    src = TestPatternSource(SRC_HW[1], SRC_HW[0])
+    frames = [src.capture_frame() for _ in range(128)]
+    direct_p = _pipeline(dev)
+    direct = [direct_p.process(np.stack(frames[i:i + 32])).cpu().numpy() for i in range(0, 128, 32)]
+    _engine_ok(direct_p.engine)
+    p = _pipeline(dev)
+    processed = []
+
+    def process(batch):
+        assert batch.device.type == "cuda" and batch.dtype == torch.uint8
+        processed.append(batch.shape[0])
+        return p.process(batch)
+
+    n = 0
+    for out in stream(iter(frames), process, batch=32, device=dev):
+        b = n // 32
+        assert len(processed) == min(b + 2, 4), f"frame {n} came out after {len(processed)} batches"
+        assert out.shape == (VIEWPORT[1], VIEWPORT[0], 3) and out.dtype == np.float32
+        assert np.array_equal(out, direct[b][n % 32]), f"frame {n} is not frame {n} of the direct run"
+        n += 1
+    _engine_ok(p.engine)
+    assert n == 128 and p.stats.frames == 128 and p.stats.batches == 4, p.stats.snapshot()
+    first = direct[0][0]
+    assert max(float(first[:, 0].max()), float(first[:, -1].max())) == 0.0, "no pillarbox bars"
+    assert float(first[:, VIEWPORT[0] // 2].mean()) > 0.0, "no content"
+    return [(_as_u8(direct[0][:2]), _as_u8(_pipeline("cpu").process(np.stack(frames[:2]))))]
+
+
+def _front_apply_u8(dev, tmp_path, capsys, monkeypatch):
+    """``apply_u8`` equals ``apply(output="u8")`` brought to the host, one
+    blit launch; a 1280x960 source under ``set_max_shader_resolution(640,
+    480)`` renders at the clamp, one blit launch, and differs from the
+    unclamped output."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(18)
+    frames = torch.randint(0, 256, (8,) + SRC_HW + (3,), generator=g, device=dev, dtype=torch.uint8)
+    big = torch.randint(0, 256, (2, 960, 1280, 3), generator=g, device=dev, dtype=torch.uint8)
+    rs.general_blocks(reset=True)
+    before = rs.LAUNCHES
+    e = _feedback_engine(dev)
+    got = e.apply_u8(frames)
+    _engine_ok(e)
+    assert rs.LAUNCHES == before + 1
+    assert isinstance(got, np.ndarray) and got.dtype == np.uint8 and got.shape == (8, VIEWPORT[1], VIEWPORT[0], 3)
+    ec = _feedback_engine(dev, clamp=(640, 480))
+    assert ec._clamped_source(1280, 960) == (640, 480)
+    clamped = ec.apply(big, output="u8")
+    _engine_ok(ec)
+    assert rs.LAUNCHES == before + 2 and rs.general_blocks(reset=True) == 0
+    assert clamped.shape == (2, VIEWPORT[1], VIEWPORT[0], 3) and clamped.dtype == torch.uint8
+    assert np.array_equal(got, _feedback_engine(dev).apply(frames, output="u8").cpu().numpy())
+    assert float((_feedback_engine(dev).apply(big, output="u8") != clamped).float().mean()) > 0.01
+    return [(torch.from_numpy(got[:2]), _feedback_engine("cpu").apply(frames[:2].cpu(), output="u8")),
+            (clamped, _feedback_engine("cpu", clamp=(640, 480)).apply(big.cpu(), output="u8"))]
+
+
+def _front_cli(*flags):
+    def case(dev, tmp_path, capsys, monkeypatch):
+        """``python -m retrocapture_tpu_torch``'s ``main`` in process: 16
+        test-pattern frames through feedback-ghost to 1080p in batches of
+        8, the preset named relative to the checkout; the card's .npy and
+        stats, no PNG for a batch of frames. The CPU run makes the first 2
+        of the same frames."""
+        from retrocapture_tpu_torch import cli
+
+        monkeypatch.chdir(FEEDBACK.parents[2])
+        argv = ["--source", "test", "--preset", "assets/presets/feedback-ghost.glslp", "--viewport",
+                f"{VIEWPORT[0]}x{VIEWPORT[1]}", "--batch", "8", "--stats", *flags]
+        outs = {}
+        for side, extra in (("card", ["--frames", "16"]), ("cpu", ["--frames", "2", "--cpu"])):
+            assert cli.main(argv + extra + ["--output", str(tmp_path / side)]) == 0
+            stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+            assert stats["frames"] == int(extra[1]) and stats["shader_active"] is True, stats
+            outs[side] = np.load(tmp_path / f"{side}.npy")
+        out = outs["card"]
+        assert out.shape == (16, VIEWPORT[1], VIEWPORT[0], 3) and out.dtype == np.float32
+        assert np.isfinite(out[0]).all() and float(out[-1].std()) > 0.05
+        assert not (tmp_path / "card.png").exists()
+        return [(_as_u8(out[:2]), _as_u8(outs["cpu"]))]
+
+    return case
+
+
+def _front_streams(dev, tmp_path, capsys, monkeypatch):
+    """``apply_streams`` of feedback-ghost on [4, 32, 240, 320, 3], two calls
+    (the first through ``apply``'s 5-D branch): one graph of the 4 streams'
+    step, each stream's frame count carried and each stream equal to an
+    engine of its own fed that stream alone, bit for bit."""
+    s, t = 4, 32
+    g = torch.Generator(device=dev)
+    g.manual_seed(17)
+    streams = [torch.randint(0, 256, (s, t) + SRC_HW + (3,), generator=g, device=dev, dtype=torch.uint8)
+               for _ in range(2)]
+    e = _feedback_engine(dev)
+    outs = [e.apply(streams[0]), e.apply_streams(streams[1])]
+    _engine_ok(e)
+    assert outs[0].shape == (s, t, VIEWPORT[1], VIEWPORT[0], 3) and outs[0].dtype == torch.float32
+    assert all(bool(torch.isfinite(o).all()) for o in outs)
+    assert e._states[SRC_HW + VIEWPORT + (s, "const")].frame_count.tolist() == [2 * t] * s
+    stats = e.replay_stats()
+    assert stats["graphs_captured"] == 1 and stats["uncaptured_applies"] == 0, stats
+    for i in range(s):
+        own = _feedback_engine(dev)
+        for k, f in enumerate(streams):
+            assert torch.equal(outs[k][i], own.apply(f[i])), f"stream {i}, call {k}"
+    del outs
+    return [(_as_u8(_feedback_engine(dev).apply_streams(streams[0][:1, :2]).cpu()),
+             _as_u8(_feedback_engine("cpu").apply_streams(streams[0][:1, :2].cpu())))]
+
+
+FRONT_DOOR = {
+    "stream": _front_stream,
+    "apply_u8 and the clamp": _front_apply_u8,
+    "cli": _front_cli(),
+    "cli traced": _front_cli("--param-mode", "traced", "--param", "GHOST=0.8"),
+    "apply_streams": _front_streams,
+}
+
+
+@pytest.mark.parametrize("case", list(FRONT_DOOR))
+def test_front_door_at_full_size(cuda_device, tmp_path, capsys, monkeypatch, case):
+    """The program's front door at 1080p on the card, each run held to the
+    port's own CPU run: within 1 u8 step in at most 0.1% of values."""
+    for card, cpu in FRONT_DOOR[case](cuda_device, tmp_path, capsys, monkeypatch):
+        _near_u8(card, cpu)

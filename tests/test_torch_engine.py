@@ -29,60 +29,14 @@ import torch
 
 import retrocapture_tpu as jax_pkg
 import retrocapture_tpu_torch as torch_pkg
+from _presets import VERTEX_GLSL as VERTEX
+from _presets import WARP_GLSL, WARP_GLSLP
 from retrocapture_tpu_torch.runtime.engine import chain_state_from_numpy
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FEEDBACK = os.path.join(REPO, "assets", "presets", "feedback-ghost.glslp")
 SRC_HW = (48, 64)
 VIEWPORT = (160, 120)
-
-VERTEX = """#if defined(VERTEX)
-
-attribute vec4 VertexCoord;
-attribute vec4 TexCoord;
-varying vec2 vTexCoord;
-uniform mat4 MVPMatrix;
-
-void main()
-{
-    gl_Position = MVPMatrix * VertexCoord;
-    vTexCoord = TexCoord.xy;
-}
-
-#elif defined(FRAGMENT)
-"""
-
-WARP_GLSLP = """shaders = 1
-shader0 = warp-curve.glsl
-filter_linear0 = true
-wrap_mode0 = clamp_to_border
-scale_type0 = viewport
-scale0 = 1.0
-"""
-
-WARP_GLSL = (
-    '#pragma parameter CURV "Curvature" 0.25 0.0 1.0 0.05\n\n'
-    + VERTEX
-    + """
-varying vec2 vTexCoord;
-uniform sampler2D Texture;
-
-#ifdef PARAMETER_UNIFORM
-uniform float CURV;
-#else
-#define CURV 0.25
-#endif
-
-void main()
-{
-    vec2 cc = vTexCoord - 0.5;
-    float r2 = dot(cc, cc);
-    gl_FragColor = texture2D(Texture, 0.5 + cc * (1.0 + CURV * r2));
-}
-
-#endif
-"""
-)
 
 # Weighted sums of u8-grid texels land exactly on .5 code boundaries
 # whenever the weights are short decimals, where the rounding of every

@@ -19,8 +19,8 @@ launch (a pure function of shapes and strides), and the addresses each
 path reads and writes for them; and the route a call takes (a direct
 launch on a plain call with CUDA tensors, the operator under a fake tensor
 mode, vmap and opcheck), with fake CUDA tensors. The kernel itself is held
-to the plain versions on the card (tests/test_torch_cuda.py,
-chip_smoke.py).
+to the plain versions on the card (tests/test_torch_cuda.py: at random
+bit patterns, every operand form and the main paths' own calls).
 """
 
 import tempfile

@@ -39,7 +39,7 @@ import torch
 
 import retrocapture_tpu as jax_pkg
 import retrocapture_tpu_torch as torch_pkg
-from chip_smoke import write_mip_presets
+from _presets import write_mip_presets
 from retrocapture_tpu.ops import sampling as js
 from retrocapture_tpu_torch.ops import sampling as ts
 from retrocapture_tpu_torch.policy import log2f32
@@ -239,9 +239,9 @@ def test_warped_mip_preset_samples_every_level(monkeypatch):
 
 def test_texture_lod_builtin_matches_jax():
     """textureLod with a constant LOD on a mipmapped input."""
-    from chip_smoke import _VERTEX_GLSL
+    from _presets import VERTEX_GLSL
 
-    glsl = _VERTEX_GLSL + """
+    glsl = VERTEX_GLSL + """
 varying vec2 vTexCoord;
 uniform sampler2D Texture;
 

@@ -13,7 +13,8 @@ uses. Under ``torch.func.vmap`` a wrapper makes one call for the batch and
 gives the bits of the call on the stacked batch. ``torch.library.opcheck``
 passes. Every call site of the kernel library and the mip LOD reaches the
 operator: no plain function runs outside it. The kernel itself is held to
-the plain versions on the card (tests/test_torch_cuda.py, chip_smoke.py).
+the plain versions on the card (tests/test_torch_cuda.py: every f32 bit
+pattern, and the main paths' own calls).
 """
 
 import tempfile

@@ -12,7 +12,7 @@ bit-equal to it wherever the f64 value is not on a knife edge (within
 ``_einsum_fallback``. The CUDA kernel takes each axis matrix row's two
 nonzero (index, weight) pairs; the table test pins those to the matrix.
 The kernel itself is held to the same truth on the card
-(tests/test_torch_cuda.py, chip_smoke.py phase 3).
+(tests/test_torch_cuda.py, at the main paths' geometries among others).
 
 The phase-form blit (``resample_u8_xphase``, ``RCTPU_XPHASE=on``) runs
 the 2-tap sums of the dense kernel regrouped by source column, so its

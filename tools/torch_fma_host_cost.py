@@ -22,8 +22,8 @@ both sides:
   dispatcher (the operator less ``_launch``); and the same dispatcher cost
   of the mirror operator ``rctpu::mirror`` (``mirrors._mirror_op`` less
   ``mirrors._launch``, at the same shape);
-* ``FramePipeline.process`` of 32 frames, as chip_smoke.py's phase 16
-  builds it (feedback-ghost at 160x120, brightness 1.1, contrast 0.9,
+* ``FramePipeline.process`` of 32 frames, as the card test of the front
+  door's stream builds it (feedback-ghost at 160x120, brightness 1.1, contrast 0.9,
   flip-Y, a pillarboxed 1920x1080 window), with a synchronize, in turns:
   as shipped, and with ``policy.fma32``/``fmaf32`` put back into the four
   modules that call the operator; each with its device busy time
