@@ -2,7 +2,7 @@
 // that broadcast against each other, one f32 result an element, in one of
 // two roundings:
 //
-//   mode 0, policy.fma32: the f64 sum narrowed once (fma32 below), how
+//   mode 0, policy.fma32: the f64 sum narrowed once (numerics.cuh), how
 //     the port models XLA-CPU's contracted multiply-add in a jitted fusion;
 //   mode 1, policy.fmaf32: __fmaf_rn, a true fused multiply-add.
 //
@@ -50,23 +50,9 @@
 //   the element's index by a multiply-and-shift division per dimension,
 //   grid-stride. The host counts these launches (general_launches()).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "numerics.cuh"
 
 namespace {
-
-// policy.fma32: a*b + c rounded once to f32. The product of two f32 values
-// is exact in f64 (48 bits of 53; no f32 product leaves the f64 range), so
-// __dmul_rn is exact; __dadd_rn rounds the sum to f64 and __double2float_rn
-// narrows it to f32. That equals __fmaf_rn except where the f64 sum is
-// inexact and lands on an f32 tie: there the second rounding goes to even
-// (a = b = 1 + 2^-12, c = 2^-80: this gives 1 + 2^-11, __fmaf_rn
-// 1 + 2^-11 + 2^-23). Built with -fmad=false, so that nothing else is
-// contracted around it.
-__device__ __forceinline__ float fma32(float a, float b, float c) {
-  return __double2float_rn(
-      __dadd_rn(__dmul_rn(static_cast<double>(a), static_cast<double>(b)), static_cast<double>(c)));
-}
 
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 16;

@@ -215,10 +215,15 @@ def _mattias_geometry(w: int, h: int, ow: int, oh: int, dev):
     groups = mattias_groups(ow, oh)
     if not blur_groups_fits((h, w, 3), (oh, ow), groups, max_dudv=_MATTIAS_MAX_DUDV, device=dev):
         return _INFEASIBLE
+    return groups, _mattias_comb(ow, oh, dev)
+
+
+def _mattias_comb(ow: int, oh: int, dev):
+    """The comb mask's factor [oh, ow, 1]."""
     xg, yg = _pixel_grid(ow, oh, dev)
     o = fma32(torch.remainder(yg + 0.5, 2.0), float(_F(2.0) * _F(1.0 / ow)), xg + 0.5)
     comb = torch.clamp((torch.remainder(o, 2.0) - 1.0) * 2.0, 0.0, 1.0)
-    return groups, fma32(comb, -0.15, 1.0)[..., None]
+    return fma32(comb, -0.15, 1.0)[..., None]
 
 
 def _mattias_warp(ow: int, oh: int, curvature, dev):
@@ -240,55 +245,19 @@ def _param(ctx, name: str, default: float):
     return v if isinstance(v, torch.Tensor) else _F(v)
 
 
-def _mattias_kernel(ctx, sh):
-    """crt-mattias.glsl on the kernel library: the 9-group blur (CUDA
-    kernel on the card) + torch epilogue. Returns None when infeasible."""
-    from retrocapture_tpu_torch.ops.cuda.blur_groups import blur5x5_groups
-    from retrocapture_tpu_torch.ops.preconv_blur import blur_preconv, blur_preconv_fits
-
-    cfg = ctx.program.preset.passes[ctx.i]
-    if cfg.filter_linear or cfg.wrap_mode != "clamp_to_edge":
-        return None
-    tex = ctx.input_binding.tex
-    h, w = int(tex.shape[0]), int(tex.shape[1])
-    ow, oh = ctx.out_size
-    dev = tex.device
-    # A traced parameter is an f32 0-d tensor on the device (the engine's
-    # parameter buffer): what derives from it is computed on every walk,
-    # never read back to the host or kept.
-    curvature = _param(ctx, "CURVATURE", 0.5)
-    scanspeed = _param(ctx, "SCANSPEED", 1.0)
-    geo = _kept(("crt-mattias", ctx.i, w, h, ow, oh, str(dev)), lambda: _mattias_geometry(w, h, ow, oh, dev))
-    if geo is _INFEASIBLE:
-        return None
-    groups, comb = geo
-    if isinstance(curvature, torch.Tensor):
-        warp = _mattias_warp(ow, oh, curvature, dev)
-    else:
-        warp = _kept(("crt-mattias-warp", ow, oh, float(curvature), str(dev)), lambda: _mattias_warp(ow, oh, float(curvature), dev))
-    uv_u, uv_v, bu, bv, vig, inside = warp
-
-    fcf = upload(ctx.frame_count, dev).to(torch.float32)
+def _mattias_epilogue_plain(planes, bv, uv_u, uv_v, vig, comb, inside, fcf, scanspeed, oh: int, ow: int):
+    """crt-mattias.glsl's main tail on one frame, as eager passes: the blur
+    planes ``{channel: [OH, OW]}`` f32 to RGBA ``[OH, OW, 4]`` f32. The
+    maps are ``_mattias_warp``'s (``bv [OH, OW]``, ``uv_u``, ``uv_v [OH,
+    OW]``, ``vig``, ``inside [OH, OW, 1]``) and ``_mattias_geometry``'s
+    ``comb [OH, OW, 1]``; ``fcf`` the f32 0-d FrameCount and ``scanspeed``
+    SCANSPEED (an f32 constant, or the f32 0-d device tensor of a traced
+    parameter). The plain version of ``rctpu::mattias_epilogue``
+    (ops/cuda/mattias_epilogue.py) and the route of a CPU tensor."""
+    dev = bv.device
     # t = FrameCount / 60 enters three products with constants; XLA folds
     # each chain into one constant times FrameCount.
     t60 = _F(1.0) / _F(60.0)
-
-    # phosphor values are sampled through pow(rgb, 2.2)
-    p = _glsl_pow(torch.clamp_min(tex[..., :3], 0.0), 2.2)
-    # The two lowerings of the 225-tap blur, as in the reference:
-    # RCTPU_MATTIAS=preconv takes the pre-convolution (one warped NEAREST
-    # sample per group), the default the direct blur kernel. On the CPU
-    # (the reference's interpret mode) only an explicit "preconv" takes
-    # the pre-convolution.
-    which = os.environ.get("RCTPU_MATTIAS", "groups")
-    use_preconv = which != "groups" and blur_preconv_fits((h, w), groups)
-    if use_preconv and dev.type == "cpu" and which != "preconv":
-        use_preconv = False
-    if use_preconv:
-        planes = blur_preconv(p, bu, bv, groups)
-    else:
-        planes = blur5x5_groups(p, bu, bv, groups)
-
     posts = {0: 0.0, 1: 0.0, 2: 0.0}
     for ch, _, _, _, _, post in _MATTIAS_GROUPS:
         posts[ch] += post
@@ -325,6 +294,57 @@ def _mattias_kernel(ctx, sh):
     col = torch.where(inside, col, 0.0)
     col = torch.where(torch.isnan(col), 0.0, col)
     return torch.cat([col, torch.ones((oh, ow, 1), dtype=torch.float32, device=dev)], dim=-1)
+
+
+def _mattias_kernel(ctx, sh):
+    """crt-mattias.glsl on the kernel library: the 9-group blur and the
+    epilogue (CUDA kernels on the card, their plain versions on the CPU).
+    Returns None when infeasible."""
+    from retrocapture_tpu_torch.ops.cuda.blur_groups import blur5x5_groups
+    from retrocapture_tpu_torch.ops.cuda.mattias_epilogue import mattias_epilogue
+    from retrocapture_tpu_torch.ops.preconv_blur import blur_preconv, blur_preconv_fits
+
+    cfg = ctx.program.preset.passes[ctx.i]
+    if cfg.filter_linear or cfg.wrap_mode != "clamp_to_edge":
+        return None
+    tex = ctx.input_binding.tex
+    h, w = int(tex.shape[0]), int(tex.shape[1])
+    ow, oh = ctx.out_size
+    dev = tex.device
+    # A traced parameter is an f32 0-d tensor on the device (the engine's
+    # parameter buffer): what derives from it is computed on every walk,
+    # never read back to the host or kept.
+    curvature = _param(ctx, "CURVATURE", 0.5)
+    scanspeed = _param(ctx, "SCANSPEED", 1.0)
+    geo = _kept(("crt-mattias", ctx.i, w, h, ow, oh, str(dev)), lambda: _mattias_geometry(w, h, ow, oh, dev))
+    if geo is _INFEASIBLE:
+        return None
+    groups, comb = geo
+    if isinstance(curvature, torch.Tensor):
+        warp = _mattias_warp(ow, oh, curvature, dev)
+    else:
+        warp = _kept(("crt-mattias-warp", ow, oh, float(curvature), str(dev)), lambda: _mattias_warp(ow, oh, float(curvature), dev))
+    uv_u, uv_v, bu, bv, vig, inside = warp
+
+    fcf = upload(ctx.frame_count, dev).to(torch.float32)
+
+    # phosphor values are sampled through pow(rgb, 2.2)
+    p = _glsl_pow(torch.clamp_min(tex[..., :3], 0.0), 2.2)
+    # The two lowerings of the 225-tap blur, as in the reference:
+    # RCTPU_MATTIAS=preconv takes the pre-convolution (one warped NEAREST
+    # sample per group), the default the direct blur kernel. On the CPU
+    # (the reference's interpret mode) only an explicit "preconv" takes
+    # the pre-convolution.
+    which = os.environ.get("RCTPU_MATTIAS", "groups")
+    use_preconv = which != "groups" and blur_preconv_fits((h, w), groups)
+    if use_preconv and dev.type == "cpu" and which != "preconv":
+        use_preconv = False
+    if use_preconv:
+        planes = blur_preconv(p, bu, bv, groups)
+    else:
+        planes = blur5x5_groups(p, bu, bv, groups)
+
+    return mattias_epilogue(planes, bv, uv_u, uv_v, vig, comb, inside, fcf, scanspeed)
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -44,11 +45,13 @@ KERNELS = {
     "mirrors": ("mirrors_launch", [_P, _P, _L, _I, _F, _P]),
     "fma": ("fma_launch", [_P, _P, _P, _F, _F, _F, _P, _I, _P, _I, _P]),
     "xbr_front": ("xbr_front_launch", [_P] + [_L] * 4 + [_P] * 8 + [_I] * 8 + [_P]),
+    "mattias_epilogue": ("mattias_epilogue_launch",
+                         [_P] * 3 + [_L] * 3 + [_P] * 7 + [_I] + [_P] * 2 + [_I, _P, _I, _P, _I, _L, _P]),
 }
 # nvcc flags of one source beyond NVCC_FLAGS: the mirrors', the fma
-# operator's and the xbr front section's roundings are all explicit, and no
-# multiply-add may be contracted behind them.
-EXTRA_FLAGS = {"mirrors": ["-fmad=false"], "fma": ["-fmad=false"], "xbr_front": ["-fmad=false"]}
+# operator's, the xbr front section's and crt-mattias's epilogue's roundings
+# are all explicit, and no multiply-add may be contracted behind them.
+EXTRA_FLAGS = {name: ["-fmad=false"] for name in ("mirrors", "fma", "xbr_front", "mattias_epilogue")}
 
 NVCC_FLAGS = [
     "-gencode",
@@ -77,9 +80,15 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([\w.]+\.cuh)"', re.MULTILINE)
+
+
 def _library_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    source = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(source)
+    for header in sorted(set(_INCLUDE.findall(source))):
+        digest.update((CSRC / header.decode()).read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _build(names) -> None:

@@ -16,6 +16,7 @@ import torch
 
 from retrocapture_tpu_torch.ops.cuda import blur_groups as bg
 from retrocapture_tpu_torch.ops.cuda import fma as fm
+from retrocapture_tpu_torch.ops.cuda import mattias_epilogue as me
 from retrocapture_tpu_torch.ops.cuda import mirrors as mr
 from retrocapture_tpu_torch.ops.cuda import warp_sample as ws
 from retrocapture_tpu_torch.ops.cuda import xbr_epilogue as xe
@@ -33,6 +34,7 @@ COUNTERS = {
     "blur_groups": ("blur_groups", "LAUNCHES", "blur_groups_kernel"),
     "xbr_epilogue": ("xbr_epilogue", "LAUNCHES", "xbr_epilogue_kernel"),
     "xbr_front": ("xbr_front", "LAUNCHES", "xbr_front_kernel"),
+    "mattias_epilogue": ("mattias_epilogue", "LAUNCHES", "mattias_epilogue_kernel"),
     "mirrors": ("mirrors", "LAUNCHES", "mirror_kernel"),
     "fma": ("fma", "LAUNCHES", "::fma_"),
 }
@@ -48,6 +50,7 @@ RECORDED = {
     "xbr_front": (xf, "_xbr_front_op", lambda *a: xf.xbr_front_plain(a[0], a[1], a[2:7], *a[7:])),
     "xbr_epilogue": (xe, "_xbr_epilogue_op", lambda S, bx, fpx, fpy, *_: torch.cat(
         [xe.xbr_epilogue_plain(S[i:i + 8], bx, fpx, fpy) for i in range(0, S.shape[0], 8)])),
+    "mattias_epilogue": (me, "_mattias_epilogue_op", me.mattias_epilogue_plain),
     "mirrors": (mr, "_mirror_op", mr.mirror_plain),
 }
 

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 import _card
+import _mattias_epilogue_cases as epilogue_cases
 import _xbr_front_cases as front_cases
 import retrocapture_tpu_torch as torch_pkg
 from _mattias_standin import write_standin
@@ -38,6 +39,7 @@ from retrocapture_tpu_torch.graph import kernels as tk
 from retrocapture_tpu_torch.graph.kernels import mattias_groups, mattias_uv
 from retrocapture_tpu_torch.ops.cuda import blur_groups as bg
 from retrocapture_tpu_torch.ops.cuda import fma as fm
+from retrocapture_tpu_torch.ops.cuda import mattias_epilogue as me
 from retrocapture_tpu_torch.ops.cuda import mirrors as mr
 from retrocapture_tpu_torch.ops.cuda import resample as rs
 from retrocapture_tpu_torch.ops.cuda import warp_sample as ws
@@ -691,6 +693,193 @@ def test_xbr_slice_launches_the_front_kernel(cuda_device, tmp_path):
     cpu = torch_pkg.Engine(viewport=(480, 270), device="cpu")
     assert cpu.load_preset(path)
     assert torch.equal(got.cpu(), cpu.apply(frames, output="u8"))
+
+
+# -- crt-mattias's epilogue kernel (csrc/mattias_epilogue.cu) ------------------
+
+
+def _epilogue(planes, maps, fcf, scanspeed, plain=False):
+    if not plain:
+        return me.mattias_epilogue(planes, *maps, fcf, scanspeed)
+    traced = isinstance(scanspeed, torch.Tensor)
+    return me.mattias_epilogue_plain(planes[0], planes[1], planes[2], *maps, fcf, scanspeed if traced else None,
+                                     0.0 if traced else float(scanspeed))
+
+
+def _scanspeed(mode, device, value=1.0):
+    """SCANSPEED as the hand kernel passes it: an f32 constant, or a traced
+    parameter's f32 0-d device tensor."""
+    return np.float32(value) if mode == "const" else torch.tensor(value, dtype=torch.float32, device=device)
+
+
+# (batch, OH, OW): the cell's shape; odd sizes and one pixel (the kernel's
+# one-pixel path); a size whose frames split into 4-pixel runs.
+EPILOGUE_SHAPES = [
+    pytest.param(32, 1080, 1920, id="cell-32x1080x1920"),
+    pytest.param(3, 137, 203, id="137x203"),
+    pytest.param(2, 97, 130, id="97x130"),
+    pytest.param(4, 1, 1, id="1x1"),
+    pytest.param(4, 90, 120, id="90x120"),
+]
+
+
+@pytest.mark.parametrize("mode", ["const", "traced"])
+@pytest.mark.parametrize("b,oh,ow", EPILOGUE_SHAPES)
+def test_mattias_epilogue_kernel_equals_plain(cuda_device, b, oh, ow, mode):
+    """One launch a batch; RGBA bit-equal to ``_mattias_epilogue_plain`` on
+    the card (max abs diff 0), the frames at FrameCount 0, 59, 2^20 and
+    2^24 - 1 in turn, SCANSPEED constant or traced; on the CPU too at the
+    small shapes."""
+    rng = np.random.default_rng(b + oh + ow)
+    maps = epilogue_cases.maps(oh, ow, cuda_device)
+    planes = epilogue_cases.planes(rng, b, oh, ow, cuda_device)
+    fcf = epilogue_cases.frame_counts(b, cuda_device)
+    ss = _scanspeed(mode, cuda_device, 1.3)
+    before = me.LAUNCHES
+    got = _epilogue(planes, maps, fcf, ss)
+    assert me.LAUNCHES == before + 1 and got.shape == (b, oh, ow, 4) and got.dtype == torch.float32
+    want = _epilogue(planes, maps, fcf, ss, plain=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and float((got - want).abs().max()) == 0.0
+    assert float(got[..., 3].min()) == 1.0 and float(got[..., :3].max()) > 0.0
+    if oh * ow < 10**5:
+        cpu = lambda x: x.cpu() if isinstance(x, torch.Tensor) else x  # noqa: E731
+        want_cpu = _epilogue({c: cpu(p) for c, p in planes.items()}, [cpu(x) for x in maps], cpu(fcf), cpu(ss),
+                             plain=True)
+        assert torch.equal(got.cpu(), want_cpu)
+
+
+@pytest.mark.parametrize("mode", ["const", "traced"])
+@pytest.mark.parametrize("b,oh,ow", [(4, 90, 120), (3, 37, 41)])
+def test_mattias_epilogue_kernel_special_values(cuda_device, b, oh, ow, mode):
+    """NaN, +inf and -inf in the planes: the plain version's bits, and no
+    NaN out (the epilogue's last ``where`` zeroes it)."""
+    rng = np.random.default_rng(31 + b)
+    maps = epilogue_cases.maps(oh, ow, cuda_device)
+    planes = epilogue_cases.planes(rng, b, oh, ow, cuda_device, specials=True)
+    fcf = epilogue_cases.frame_counts(b, cuda_device, start=1)
+    ss = _scanspeed(mode, cuda_device)
+    got = _epilogue(planes, maps, fcf, ss)
+    want = _epilogue(planes, maps, fcf, ss, plain=True)
+    torch.cuda.synchronize()
+    assert bool(planes[0].isnan().any()) and bool(planes[1].isinf().any())
+    assert torch.equal(got, want) and not bool(got.isnan().any())
+
+
+def test_mattias_epilogue_kernel_reads_planes_where_they_lie(cuda_device):
+    """The planes as the blur operator leaves them, the channel slices of one
+    [3, B, OH, OW] tensor, are read in place; a plane one element off
+    16-byte alignment (the one-pixel path), a plane every frame shares
+    (batch stride 0), one FrameCount for the batch and one frame ([OH, OW]
+    planes, a 0-d FrameCount) each give the plain version's bits."""
+    rng = np.random.default_rng(32)
+    b, oh, ow = 3, 90, 120
+    maps = epilogue_cases.maps(oh, ow, cuda_device)
+    stacked = torch.stack([p for _, p in sorted(epilogue_cases.planes(rng, b, oh, ow, cuda_device).items())])
+    fcf = epilogue_cases.frame_counts(b, cuda_device, start=2)
+    ss = _scanspeed("traced", cuda_device, 0.7)
+    flat = torch.cat([torch.zeros(1, device=cuda_device), stacked[0].reshape(-1)])
+    shared = epilogue_cases.planes(rng, 1, oh, ow, cuda_device)[2][0]
+    variants = {
+        "slices": ({c: stacked[c] for c in range(3)}, fcf),
+        "unaligned": ({0: flat[1:].view(b, oh, ow), 1: stacked[1], 2: stacked[2]}, fcf),
+        "shared plane": ({0: stacked[0], 1: stacked[1], 2: shared.expand(b, oh, ow)}, fcf),
+        "one FrameCount": ({c: stacked[c] for c in range(3)}, fcf[1]),
+        "one frame": ({c: stacked[c][1] for c in range(3)}, fcf[1]),
+    }
+    for name, (planes, f) in variants.items():
+        got = _epilogue(planes, maps, f, ss)
+        want = _epilogue(planes, maps, f, ss, plain=True)
+        torch.cuda.synchronize()
+        assert got.shape == planes[0].shape + (4,) and torch.equal(got, want), name
+
+
+@pytest.mark.parametrize("mode", ["const", "traced"])
+def test_mattias_epilogue_graph_replay_reads_rewritten_scalars(cuda_device, mode):
+    """The kernel captured into a CUDA graph over fixed buffers: each replay
+    after the planes, FrameCount and (traced) SCANSPEED are rewritten in
+    place gives the plain version's bits on the new values, and makes no
+    launch call."""
+    rng = np.random.default_rng(33)
+    b, oh, ow = 4, 90, 120
+    maps = epilogue_cases.maps(oh, ow, cuda_device)
+    planes = epilogue_cases.planes(rng, b, oh, ow, cuda_device)
+    fcf = epilogue_cases.frame_counts(b, cuda_device)
+    ss = _scanspeed(mode, cuda_device)
+    _epilogue(planes, maps, fcf, ss)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = _epilogue(planes, maps, fcf, ss)
+    for k in range(3):
+        for c, p in epilogue_cases.planes(rng, b, oh, ow, cuda_device).items():
+            planes[c].copy_(p)
+        fcf.copy_(epilogue_cases.frame_counts(b, cuda_device, start=k + 1) + 7.0 * k)
+        if mode == "traced":
+            ss.fill_(0.5 + k)
+        before = me.LAUNCHES
+        graph.replay()
+        assert me.LAUNCHES == before
+        want = _epilogue(planes, maps, fcf, ss, plain=True)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), k
+
+
+def test_mattias_epilogue_batching_rule_launches(cuda_device):
+    """Under torch.func.vmap, frames that share the maps are one launch, with
+    a FrameCount a frame or one for the batch; frames with maps of their own
+    are one launch each; each frame gets the bits of its own launch."""
+    rng = np.random.default_rng(34)
+    b, oh, ow = 4, 90, 120
+    maps = epilogue_cases.maps(oh, ow, cuda_device)
+    planes = epilogue_cases.planes(rng, b, oh, ow, cuda_device)
+    fcf = epilogue_cases.frame_counts(b, cuda_device)
+    ss = _scanspeed("traced", cuda_device)
+
+    def one(p0, p1, p2, f):
+        return _epilogue({0: p0, 1: p1, 2: p2}, maps, f, ss)
+
+    for in_dims, f in (((0, 0, 0, 0), fcf), ((0, 0, 0, None), fcf[2])):
+        before = me.LAUNCHES
+        got = torch.func.vmap(one, in_dims=in_dims)(planes[0], planes[1], planes[2], f)
+        assert me.LAUNCHES == before + 1
+        want = torch.stack([one(planes[0][i], planes[1][i], planes[2][i], f[i] if f.dim() else f) for i in range(b)])
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    per = [epilogue_cases.maps(oh, ow, cuda_device, curvature=0.2 * i) for i in range(b)]
+    stacked = [torch.stack([m[k] for m in per]) for k in range(6)]
+
+    def own(p0, p1, p2, f, *m):
+        return _epilogue({0: p0, 1: p1, 2: p2}, m, f, ss)
+
+    before = me.LAUNCHES
+    got = torch.func.vmap(own)(planes[0], planes[1], planes[2], fcf, *stacked)
+    assert me.LAUNCHES == before + b
+    want = torch.stack([own(planes[0][i], planes[1][i], planes[2][i], fcf[i], *per[i]) for i in range(b)])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_mattias_epilogue_wrapper_raises(cuda_device):
+    rng = np.random.default_rng(35)
+    b, oh, ow = 2, 12, 16
+    maps = epilogue_cases.maps(oh, ow, cuda_device)
+    planes = epilogue_cases.planes(rng, b, oh, ow, cuda_device)
+    fcf = epilogue_cases.frame_counts(b, cuda_device)
+    before = me.LAUNCHES
+    with pytest.raises(TypeError):
+        _epilogue({c: p.double() for c, p in planes.items()}, maps, fcf, np.float32(1.0))
+    with pytest.raises(ValueError):
+        _epilogue({**planes, 2: planes[2][:, :-1]}, maps, fcf, np.float32(1.0))  # planes of two sizes
+    with pytest.raises(ValueError):
+        _epilogue(planes, (maps[0].cpu(),) + maps[1:], fcf, np.float32(1.0))  # a map on another device
+    with pytest.raises(ValueError):
+        _epilogue(planes, maps, fcf.double(), np.float32(1.0))
+    with pytest.raises(RuntimeError):
+        _epilogue({c: p.to("meta") for c, p in planes.items()}, [m.to("meta") for m in maps], fcf.to("meta"),
+                  np.float32(1.0))
+    assert me.LAUNCHES == before
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -1549,17 +1738,23 @@ MAIN_PATHS = {
                                            traced=("GHOST", 0.8), some=("fma",), looks=_looks_mixed),
     "warp-curve traced": MainPath(write_warp_preset, 8, {"warp_sample": 1, "resample_u8": 1}, traced=("CURV", 0.5),
                                   looks=_looks_warped),
-    # Five mirrors a walk (the pows 2.2, 0.9, 0.45, the scanline and hash
-    # sines; the vignette's 0.3 pow is kept by the first walk).
-    "crt-mattias": MainPath(write_standin, 32, {"blur_groups": 1, "mirrors": 5, "resample_u8": 1}, some=("fma",),
-                            looks=_looks_curved),
-    "crt-mattias traced": MainPath(write_standin, 32, {"blur_groups": 1, "resample_u8": 1}, traced=("CURVATURE", 0.8),
-                                   some=("fma", "mirrors"), looks=_looks_curved),
-    "crt-mattias RCTPU_BLUR=v1": MainPath(write_standin, 32, {"blur_groups": 1, "resample_u8": 1},
+    # One mirror and no multiply-add a walk: the input's pow 2.2 (the maps,
+    # the vignette's 0.3 pow and the comb mask's multiply-adds among them,
+    # are kept by the first walk); the epilogue is one kernel.
+    "crt-mattias": MainPath(write_standin, 32, {"blur_groups": 1, "mattias_epilogue": 1, "mirrors": 1, "fma": 0,
+                                                "resample_u8": 1}, looks=_looks_curved),
+    # The traced CURVATURE's maps are built every walk: the vignette's pow
+    # besides the input's, and the warp's multiply-adds.
+    "crt-mattias traced": MainPath(write_standin, 32, {"blur_groups": 1, "mattias_epilogue": 1, "mirrors": 2,
+                                                       "resample_u8": 1}, traced=("CURVATURE", 0.8), some=("fma",),
+                                   looks=_looks_curved),
+    "crt-mattias RCTPU_BLUR=v1": MainPath(write_standin, 32, {"blur_groups": 1, "mattias_epilogue": 1,
+                                                              "resample_u8": 1},
                                           env={"RCTPU_BLUR": "v1"}, looks=_looks_curved),
     # A warp launch a group for the batch, on single-channel textures.
     "crt-mattias RCTPU_MATTIAS=preconv": MainPath(write_standin, 32,
-                                                  {"warp_sample": 9, "blur_groups": 0, "resample_u8": 1},
+                                                  {"warp_sample": 9, "blur_groups": 0, "mattias_epilogue": 1,
+                                                   "resample_u8": 1},
                                                   env={"RCTPU_MATTIAS": "preconv"}, looks=_looks_curved),
     "xbr-lv2": MainPath(write_xbr_standin, 64, {"xbr_front": 1, "xbr_epilogue": 1, "resample_u8": 1},
                         looks=_looks_xbr),
@@ -1788,7 +1983,7 @@ def test_main_path_at_full_size(cuda_device, tmp_path, monkeypatch, name):
             assert rec["entries"] == {"engaged": case.entries[1], "declined": 0}
         if case.blit_from:
             assert [tuple(t.shape) for t in rec["blits"]] == [(case.batch,) + case.blit_from + (3,)]
-        for k in ("warp_sample", "blur_groups", "xbr_front", "xbr_epilogue"):
+        for k in ("warp_sample", "blur_groups", "xbr_front", "xbr_epilogue", "mattias_epilogue"):
             assert len(rec[k]) == walked[k] and all(a[0].shape[0] == case.batch for a in rec[k]), k
         assert bool(torch.isfinite(walk[2]).all())
         assert case.looks(_Run(e, walk[1], frames[1], rec))

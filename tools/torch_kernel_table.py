@@ -12,7 +12,10 @@ first at the benchmark's shapes through a walked engine
 ``launches`` are its kernel's launch calls in both second applies, summed
 over the paths, its ``graph_runs`` the kernel's runs inside the replayed
 apply's CUDA graph (the benchmark's ``harness/trace.py`` profiler). The
-walks record the xbr, mirror and multiply-add inputs the rows time.
+walks record the xbr, crt-mattias epilogue, mirror and multiply-add inputs
+the rows time; crt-mattias's old output pow and multiply-add (rows M and
+F), which its epilogue kernel computes now, are timed on random inputs
+of their shapes.
 
 A time is the mean of CUDA events around a window of many calls queued
 behind a spin kernel, in turns with the library call (kernel, library,
@@ -59,6 +62,8 @@ KERNELS = {
     "blur_groups_v1": ("blur_groups.cu", "retrocapture_tpu/ops/pallas/blur_groups.py:221"),
     "xbr_epilogue": ("xbr_epilogue.cu", "retrocapture_tpu/ops/pallas/xbr_epilogue.py:58"),
     "xbr_front": ("xbr_front.cu", "none, XLA's fusion of the front section of retrocapture_tpu/graph/kernels.py:340"),
+    "mattias_epilogue": ("mattias_epilogue.cu",
+                         "none, XLA's fusion of crt-mattias's epilogue, retrocapture_tpu/graph/kernels.py:189-226"),
     "mirrors": ("mirrors.cu", "none, XLA's inline sin/log/exp in the reference's fusions"),
     "fma": ("fma.cu", "none, XLA's contracted multiply-adds in the reference's fusions"),
 }
@@ -186,6 +191,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_table: no CUDA card")
+    import numpy as np
     import torch.nn.functional as F
 
     import _card
@@ -194,9 +200,10 @@ def main() -> int:
     from _ntsc_standin import write_chain as write_ntsc
     from _presets import write_xphase_preset
     from _xbr_standin import write_standin as write_xbr
-    from retrocapture_tpu_torch.graph.kernels import mattias_groups, mattias_uv
+    from retrocapture_tpu_torch.graph.kernels import _F, mattias_groups, mattias_uv
     from retrocapture_tpu_torch.ops.cuda import blur_groups as bg
     from retrocapture_tpu_torch.ops.cuda import fma as fm
+    from retrocapture_tpu_torch.ops.cuda import mattias_epilogue as me
     from retrocapture_tpu_torch.ops.cuda import mirrors as mr
     from retrocapture_tpu_torch.ops.cuda import resample as rs
     from retrocapture_tpu_torch.ops.cuda import warp_sample as ws
@@ -219,7 +226,7 @@ def main() -> int:
             "feedback-ghost-nv12": (FEEDBACK, "nv12", 128, {}, (_card.fma_forms,)),
             "feedback-ghost-nv12 RCTPU_XPHASE=on": (write_xphase_preset(Path(own("xphase")), FEEDBACK.with_suffix(
                 ".glsl"), w, h), "nv12", 128, {"RCTPU_XPHASE": "on"}, ()),
-            "crt-mattias": (mattias, "rgb", 32, {}, (lambda: _card.launched(mr, "_mirror_op"), _card.fma_forms)),
+            "crt-mattias": (mattias, "rgb", 32, {}, (lambda: _card.launched(me, "_mattias_epilogue_op"),)),
             "crt-mattias RCTPU_BLUR=v1": (mattias, "rgb", 32, {"RCTPU_BLUR": "v1"}, ()),
             "crt-mattias RCTPU_MATTIAS=preconv": (mattias, "rgb", 32, {"RCTPU_MATTIAS": "preconv"}, ()),
             "xbr-lv2": (write_xbr(own("xbr-lv2")), "rgb", 64, {}, (lambda: _card.launched(xe, "_xbr_epilogue_op"),
@@ -315,20 +322,30 @@ def main() -> int:
         lambda: _card.RECORDED["xbr_front"][2](*a), work("xbr_front", 64, SRC_HW, (vh, vw)))
     del epi, front, a
 
-    # M, M': the mirrors at crt-mattias's output gamma and nnedi3's exp.
-    for rid, name, op, ops in (("M", "crt-mattias", "pow", 52), ("M'", "nnedi3 nns64 -rgb", "exp", 21)):
-        calls = recorded[name][0]
-        xm, _, c = max((a for a in calls if a[1] == op), key=lambda a: a[0].numel())
-        calls.clear()
+    # E: crt-mattias's epilogue, as its walk launched it.
+    a = recorded.pop("crt-mattias")[0][0]
+    row("E", "mattias_epilogue", "3 planes [32,1080,1920] -> RGBA [32,1080,1920,4]",
+        lambda: me._mattias_epilogue_op(*a), lambda: me.mattias_epilogue_plain(*a),
+        work("mattias_epilogue", 32, SRC_HW, (vh, vw)))
+    del a
+
+    # M, M': the mirrors at crt-mattias's old output gamma (pow 0.45 of RGB
+    # at [32, 1080, 1920], random values) and at nnedi3's exp.
+    c045 = float(_F(_F(_F(0.45) * _F(1.0 / np.log(2.0))) * _F(np.log(2.0))))
+    exps = recorded.pop("nnedi3 nns64 -rgb")[0]
+    for rid, (xm, op, c), ops in (("M", (torch.rand((32, vh, vw, 3), device="cuda"), "pow", c045), 52),
+                                  ("M'", max((a for a in exps if a[1] == "exp"), key=lambda a: a[0].numel()), 21)):
         row(rid, "mirrors", f"{op}{f' {c:.6g}' if op == 'pow' else ''} {list(xm.shape)}",
             lambda: mr._mirror_op(xm, op, c), lambda: mr.mirror_plain(xm, op, c), mirror_work(xm, ops))
         del xm
+    del exps
 
-    # F - F''': rctpu::fma at crt-mattias's largest epilogue call and at
+    # F - F''': rctpu::fma at crt-mattias's old saturation step fma32(col,
+    # col, -col) over [32, 1080, 1920, 3] (random values) and at
     # feedback-ghost's mix and LINEAR axis sums, beside torch.addcmul.
-    forms = recorded.pop("crt-mattias")[1]
-    picks = [("F", "crt-mattias, largest", max((f[1] for f in forms.values()),
-                                                key=lambda a: sum(t.numel() for t in a[:3] if t is not None)))]
+    col = torch.rand((32, vh, vw, 3), device="cuda")
+    picks = [("F", "crt-mattias col, col, -col", (col, col, -col, 0.0, 0.0, 0.0, 0))]
+    del col
     forms = [f[1] for f in recorded.pop("feedback-ghost-nv12")[0].values()]
     for rid, what, shape in (("F'", "feedback-ghost mix", (4,)), ("F''", "feedback-ghost row weight", (vh, 1, 1)),
                              ("F'''", "feedback-ghost column weight", (1, vw, 1))):
