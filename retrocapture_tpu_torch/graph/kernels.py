@@ -38,7 +38,7 @@ import torch
 
 from retrocapture_tpu_torch.ops.cuda import mirrors
 from retrocapture_tpu_torch.ops.cuda.fma import fma32, fmaf32
-from retrocapture_tpu_torch.policy import unrecorded, upload, walk_program
+from retrocapture_tpu_torch.policy import count, unrecorded, upload, walk_program
 
 __all__ = ["find_kernel"]
 
@@ -1016,7 +1016,14 @@ def _nnedi3_kernel(ctx, sh, *, axis: int, comps: int):
 
 def _make_nnedi3(axis: int, comps: int):
     def k(ctx, sh):
-        return _nnedi3_kernel(ctx, sh, axis=axis, comps=comps)
+        out = _nnedi3_kernel(ctx, sh, axis=axis, comps=comps)
+        if out is None:
+            count(("nnedi3", ctx.i), {"nnedi3_declined": 1})
+        else:
+            tex = ctx.input_binding.tex  # one frame's, under vmap too
+            values = int(tex.shape[0]) * int(tex.shape[1]) * comps
+            count(("nnedi3", ctx.i), {"nnedi3_passes": 1, "nnedi3_values": values})
+        return out
 
     return k
 

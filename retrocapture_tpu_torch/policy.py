@@ -52,7 +52,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["apply_policy", "to_device", "upload", "bitcast", "WalkProgram", "walking", "walk_program", "unrecorded", "ifloor32", "fma32", "fmaf32", "sinf32", "logf32", "log2f32", "expf32", "INT32_MIN"]
+__all__ = ["apply_policy", "to_device", "upload", "bitcast", "WalkProgram", "walking", "walk_program", "unrecorded", "counting", "count", "ifloor32", "fma32", "fmaf32", "sinf32", "logf32", "log2f32", "expf32", "INT32_MIN"]
 
 INT32_MIN = -2147483648
 
@@ -187,6 +187,30 @@ def walking(program: Optional[WalkProgram]):
             )
     finally:
         _WALK.reset(token)
+
+
+# Where the walks that run now tally what they did of one frame, if anywhere.
+_COUNTS: contextvars.ContextVar = contextvars.ContextVar("retrocapture_counts", default=None)
+
+
+@contextlib.contextmanager
+def counting(counts: dict):
+    """Let the walks in the block tally into ``counts`` (``count``)."""
+    token = _COUNTS.set(counts)
+    try:
+        yield counts
+    finally:
+        _COUNTS.reset(token)
+
+
+def count(site, values: dict) -> None:
+    """What the walk did of one frame at ``site`` (a pass's hand entry):
+    ``values`` maps a counter of ``Engine.replay_stats`` to its count a
+    frame. A walk run again sets the same site again, so the counts are a
+    frame's, whatever the number of walks."""
+    counts = _COUNTS.get()
+    if counts is not None:
+        counts[site] = values
 
 
 @contextlib.contextmanager

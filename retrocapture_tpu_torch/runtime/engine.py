@@ -75,7 +75,7 @@ from retrocapture_tpu_torch.ops.colorspace import framebuffer_store
 from retrocapture_tpu_torch.ops.cuda.resample import _quantize_u8, blit_u8
 from retrocapture_tpu_torch.ops.sampling import sample2d
 from retrocapture_tpu_torch.policy import to_device, upload
-from retrocapture_tpu_torch.policy import unrecorded, walk_program
+from retrocapture_tpu_torch.policy import counting, unrecorded, walk_program
 from retrocapture_tpu_torch.presets.glslp import Preset
 from retrocapture_tpu_torch.runtime import replay
 from retrocapture_tpu_torch.utils.logging import get_logger
@@ -289,11 +289,19 @@ class Engine:
         uncaptured (``RCTPU_REPLAY=0`` or concrete FrameCount), the
         seconds spent in first walks and captures, the frames run through
         the chain and those of them that took the fc-period grouped
-        branch; ``reset`` zeroes them."""
+        branch, and what the nnedi3 entry did over those frames (passes
+        computed and declined, values predicted; ``replay.new_stats``);
+        ``reset`` zeroes them."""
         out = dict(self._stats)
         if reset:
             self._stats = replay.new_stats()
         return out
+
+    def _tally(self, counts: dict, frames: int) -> None:
+        """Add to the stats what a walk tallied of one frame, ``frames`` times."""
+        for per_frame in counts.values():
+            for name, n in per_frame.items():
+                self._stats[name] += n * frames
 
     def _drop_programs(self) -> None:
         """Release every kept program (and its graph and pool)."""
@@ -747,20 +755,27 @@ class Engine:
             self._stats["uncaptured_applies"] += card
             hist, fb = state.history, state.feedback
             outs = []
-            for i in range(nb):
-                out, hist, fb = single(
-                    src_b[i], hist, fb, np.int32(fc_static + i), _DT * np.float32(fc_static + i)
-                )
-                outs.append(out)
+            counts = {}
+            with counting(counts):
+                for i in range(nb):
+                    out, hist, fb = single(
+                        src_b[i], hist, fb, np.int32(fc_static + i), _DT * np.float32(fc_static + i)
+                    )
+                    outs.append(out)
+            self._tally(counts, nb)
             new_state = _ChainState(
                 hist, fb, state.frame_count + nb, state.time + _DT * np.float32(nb)
             )
             return torch.stack(outs)[..., :3], new_state
 
-        out, new_state = replay.run_captured(
-            program, walk_fn, src_b, state, out_shape, temporal, _ChainState, self._stats,
-            graph=card and _replay_on(), fc_group=fc_group,
-        )
+        # The walks (the first, a capture's, an uncaptured replay's) tally a
+        # frame's counts into the program; a graph's replay runs none.
+        with counting(program.counts):
+            out, new_state = replay.run_captured(
+                program, walk_fn, src_b, state, out_shape, temporal, _ChainState, self._stats,
+                graph=card and _replay_on(), fc_group=fc_group,
+            )
+        self._tally(program.counts, nb)
         if streams and temporal:
             out = out.transpose(0, 1).reshape((nb,) + tuple(out.shape[2:]))
         return out, new_state

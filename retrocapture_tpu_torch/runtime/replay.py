@@ -67,10 +67,12 @@ class ReplayError(RuntimeError):
 
 def new_stats() -> dict:
     """The counts ``Engine.replay_stats`` reports: ``frames`` run through the
-    chain by every branch, and ``fc_grouped_frames`` of them by the
-    fc-period grouped one."""
+    chain by every branch, ``fc_grouped_frames`` of them by the fc-period
+    grouped one; over the frames, the passes that the nnedi3 entry
+    computed (``nnedi3_passes``) and declined to the evaluator
+    (``nnedi3_declined``), and the values it predicted (``nnedi3_values``)."""
     return {"graphs_captured": 0, "replays": 0, "uncaptured_applies": 0, "capture_seconds": 0.0,
-            "frames": 0, "fc_grouped_frames": 0}
+            "frames": 0, "fc_grouped_frames": 0, "nnedi3_passes": 0, "nnedi3_declined": 0, "nnedi3_values": 0}
 
 
 @dataclass
@@ -100,10 +102,12 @@ class ChainProgram:
     walk: WalkProgram = field(default_factory=WalkProgram)
     captured: dict = field(default_factory=dict)
     stream: Optional[Any] = None  # the side stream of the first walk and the capture
+    counts: dict = field(default_factory=dict)  # what a walk tallied of one frame (policy.count)
 
     def release(self) -> None:
         self.captured = {}
         self.walk = WalkProgram()
+        self.counts = {}
 
 
 def _copy_state_into(dst, src) -> None:

@@ -11,11 +11,24 @@ weights) and whose ``WS`` holds the two biases' bits. So a passthrough
 shader that carries such lines in a comment, under a registry basename,
 drives the full nnedi3 computation in both engines. The weights are
 random finite f32 values from ``numpy.random.default_rng(seed)``.
+
+The line form and the passthrough shader are the benchmark's
+(``bench_torch/presets/nnedi3-nns64-2x-nns32-4x-rgb.py``), whose writer
+``write_4x_chain`` is: the four passes of nnedi3-nns64-2x-nns32-4x-rgb.
 """
 
+import importlib.util
 import os
+from pathlib import Path
 
 import numpy as np
+
+_spec = importlib.util.spec_from_file_location(
+    "nnedi3_4x_preset",
+    Path(__file__).resolve().parents[1] / "bench_torch" / "presets" / "nnedi3-nns64-2x-nns32-4x-rgb.py",
+)
+PRESET_4X = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(PRESET_4X)
 
 NAMES = [
     f"nnedi3-nns{nns}-win8x4-{p}-{kind}.glsl"
@@ -24,28 +37,7 @@ NAMES = [
     for kind in ("luma", "rgb")
 ]
 
-PASSTHROUGH_GLSL = """#if defined(VERTEX)
-attribute vec4 VertexCoord;
-attribute vec4 TexCoord;
-varying vec2 vTexCoord;
-uniform mat4 MVPMatrix;
-void main()
-{
-    gl_Position = MVPMatrix * VertexCoord;
-    vTexCoord = TexCoord.xy;
-}
-#elif defined(FRAGMENT)
-varying vec2 vTexCoord;
-uniform sampler2D Texture;
-/*
-{net}
-*/
-void main()
-{
-    gl_FragColor = texture2D(Texture, vTexCoord);
-}
-#endif
-"""
+PASSTHROUGH_GLSL = PRESET_4X.PASSTHROUGH_GLSL
 
 # pass1 doubles y (source 1 x 2), pass2 doubles x (source 2 x 1).
 CHAIN_GLSLP = """shaders = 2
@@ -87,17 +79,14 @@ def net_text(nns: int, seed: int, terms: int = 8, repeat_sample: bool = False, b
     def bits(n, scale):
         return (rng.standard_normal(n) * scale).astype(np.float32).view(np.int32)
 
+    samples = [0] * terms if repeat_sample else list(range(terms))
     lines = []
     for k in range(nns):
-        sums = []
-        for j in range(2):
-            w = bits(32, 0.25)
-            if bad_weight and k == 0 and j == 0:
-                w[0] = np.array(np.inf, np.float32).view(np.int32)
-            samples = [0] * terms if repeat_sample else list(range(terms))
-            sums.append("+".join(f"W({s},{w[4 * s]},{w[4 * s + 1]},{w[4 * s + 2]},{w[4 * s + 3]})" for s in samples))
+        w1, w2 = bits(32, 0.25), bits(32, 0.25)
+        if bad_weight and k == 0:
+            w1[0] = np.array(np.inf, np.float32).view(np.int32)
         b = bits(2, 0.5)
-        lines.append(f"sum1={sums[0]};sum2={sums[1]};WS({b[0]},{b[1]});")
+        lines.append(PRESET_4X.neuron_line(w1, w2, b[0], b[1], samples))
     return "\n".join(lines)
 
 
@@ -142,3 +131,11 @@ def write_one_pass(directory, name: str, seed: int = 0, scale=None, float_frameb
     with open(path, "w") as f:
         f.write(ONE_PASS_GLSLP.format(shader=name, sx=sx, sy=sy, float_fb="true" if float_framebuffer else "false"))
     return path
+
+
+def write_4x_chain(directory, height: int) -> str:
+    """The four passes of nnedi3-nns64-2x-nns32-4x-rgb (the benchmark's
+    preset: y and x doubled by the nns64 net, then again by the nns32 net),
+    the last pass at the absolute y ``height`` (4 x the source height); its
+    path."""
+    return PRESET_4X.write(directory, height=height)

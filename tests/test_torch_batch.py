@@ -498,7 +498,8 @@ def test_one_walk_an_apply_and_a_program_per_batch_size(tmp, monkeypatch):
     assert sorted(k[-2:] for k in _stateless_keys(e)) == [(2, None), (4, None)]
     assert e._fc_hosts[SRC_HW + VIEWPORT] == 14 and int(e._states[SRC_HW + VIEWPORT].frame_count) == 14
     assert e.replay_stats() == {"graphs_captured": 0, "replays": 0, "uncaptured_applies": 0, "capture_seconds": 0.0,
-                                "frames": 14, "fc_grouped_frames": 0}
+                                "frames": 14, "fc_grouped_frames": 0, "nnedi3_passes": 0, "nnedi3_declined": 0,
+                                "nnedi3_values": 0}
 
 
 # -- 6. the kernels' batching rules -----------------------------------------------

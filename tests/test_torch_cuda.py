@@ -29,6 +29,7 @@ import _xbr_front_cases as front_cases
 import retrocapture_tpu_torch as torch_pkg
 from _mattias_standin import write_standin
 from _nnedi3_standin import NAMES as NNEDI3_NAMES
+from _nnedi3_standin import write_4x_chain as write_nnedi3_4x_chain
 from _nnedi3_standin import write_chain as write_nnedi3_chain
 from _ntsc_standin import PASS1, PASS2
 from _ntsc_standin import write_chain as write_ntsc_chain
@@ -1075,9 +1076,13 @@ def test_ntsc_chain_cuda_matches_cpu(cuda_device, tmp_path, pass1, pass2, viewpo
     _chain_cuda_vs_cpu(path, frames, viewport)
 
 
-@pytest.mark.parametrize("nns,kind", [(16, "luma"), (64, "rgb")])
+@pytest.mark.parametrize("nns,kind", [(16, "luma"), (64, "rgb"), ("64-2x-32-4x", "rgb")])
 def test_nnedi3_chain_cuda_matches_cpu(cuda_device, tmp_path, nns, kind):
-    path = write_nnedi3_chain(str(tmp_path), nns, kind, height=48)
+    """The 2-pass chains, and the benchmark's 4-pass one (24x32 -> 96x128)."""
+    if nns == "64-2x-32-4x":
+        path = write_nnedi3_4x_chain(str(tmp_path), height=96)
+    else:
+        path = write_nnedi3_chain(str(tmp_path), nns, kind, height=48)
     frames = np.random.default_rng(24).integers(0, 256, (2, 24, 32, 3), dtype=np.uint8)
     _chain_cuda_vs_cpu(path, frames, (192, 108))
 
@@ -1771,6 +1776,11 @@ MAIN_PATHS = {
                                               entries=(NTSC_ENTRIES, 4), looks=_looks_lit),
     "nnedi3 nns64 -rgb": MainPath(_nnedi3(64, "rgb"), 32, {"resample_u8": 1}, entries=(NNEDI3_NAMES, 2),
                                   some=("mirrors",), blit_from=(2 * SRC_HW[0], 2 * SRC_HW[1]), looks=_looks_lit),
+    # The benchmark's nnedi3-nns64-2x-nns32-4x-rgb: four passes, the last at
+    # 960 x 1280; a small batch (the entry's transients are ~2.2 GB a frame).
+    "nnedi3 nns64-2x nns32-4x -rgb": MainPath(lambda tmp: write_nnedi3_4x_chain(str(tmp), height=4 * SRC_HW[0]), 4,
+                                              {"resample_u8": 1}, entries=(NNEDI3_NAMES, 4), some=("mirrors",),
+                                              blit_from=(4 * SRC_HW[0], 4 * SRC_HW[1]), looks=_looks_lit),
     "nnedi3 nns16 -luma": MainPath(_nnedi3(16, "luma"), 8, {"resample_u8": 1}, entries=(NNEDI3_NAMES, 2),
                                    looks=_looks_lit),
     "mip-glow": MainPath(lambda tmp: write_mip_presets(tmp)[0], 4, {"resample_u8": 1},

@@ -31,7 +31,7 @@ import torch
 
 import retrocapture_tpu as jax_pkg
 import retrocapture_tpu_torch as torch_pkg
-from _nnedi3_standin import NAMES, write_chain, write_one_pass, write_shader
+from _nnedi3_standin import NAMES, write_4x_chain, write_chain, write_one_pass, write_shader
 from retrocapture_tpu.graph import kernels as jk
 from retrocapture_tpu_torch.graph import kernels as tk
 from retrocapture_tpu_torch.policy import expf32, logf32
@@ -184,6 +184,51 @@ def test_wrong_scale_declines(tmp, monkeypatch):
     np.testing.assert_array_equal(got, off)
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, frames)
+
+
+def test_4x_chain_matches_jax_engine(tmp, monkeypatch):
+    """The benchmark's four passes (nnedi3-nns64-2x-nns32-4x-rgb: the nns64
+    net doubles y then x, the nns32 net again), 24x32 -> 96x128, u8 at a
+    viewport the blit stretches it to; every pass through the entry."""
+    d = os.path.join(tmp, "chain-4x")
+    os.makedirs(d, exist_ok=True)
+    path = write_4x_chain(d, height=4 * SRC[0])
+    frames = _frames(5)
+    want, jcalls = _run(jax_pkg, path, (160, 120), frames, "u8", monkeypatch)
+    got, tcalls = _run(torch_pkg, path, (160, 120), frames, "u8", monkeypatch)
+    assert jcalls and all(jcalls) and tcalls == [True] * 4  # one walk of the batch, four passes
+    dd = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert dd.max() <= 1 and (dd != 0).mean() <= 1e-3, (dd.max(), (dd != 0).mean())
+
+
+@pytest.mark.parametrize("concrete", [False, True], ids=["replayed", "concrete-fc"])
+@pytest.mark.parametrize("case", ["computed", "declined"])
+def test_replay_stats_count_the_entrys_passes(tmp, monkeypatch, case, concrete):
+    """``Engine.replay_stats`` counts, over the frames, the passes the entry
+    computed and the values it predicted (one a source texel and channel),
+    and the passes it declined: the 2-pass -rgb chain at 24x32 ends at 48x64,
+    or, its last pass at source y 1.0, at the viewport's height, where the
+    pass-2 entry declines. Both branches of a batch: the program's walk
+    (its counts taken at every apply) and concrete FrameCount's plain walks."""
+    from retrocapture_tpu_torch.runtime import engine as engine_module
+
+    monkeypatch.setattr(engine_module, "_CONCRETE_FC", concrete)
+    d = os.path.join(tmp, f"count-{case}")
+    os.makedirs(d, exist_ok=True)
+    path = write_chain(d, 16, "rgb", seed=3, height=48 if case == "computed" else None)
+    e = torch_pkg.Engine(viewport=(64, 48 if case == "computed" else 60), device="cpu")
+    assert e.load_preset(path), e.last_error
+    for n in (2, 3, 2):
+        e.apply(_t(_frames(n, n)), output="u8")
+    stats = e.replay_stats()
+    h, w = SRC
+    if case == "computed":
+        assert stats["nnedi3_passes"] == 2 * 7 and stats["nnedi3_declined"] == 0
+        assert stats["nnedi3_values"] == 7 * 3 * (h * w + 2 * h * w)
+    else:
+        assert stats["nnedi3_passes"] == 7 and stats["nnedi3_declined"] == 7
+        assert stats["nnedi3_values"] == 7 * 3 * h * w
+    assert e.replay_stats(reset=True)["frames"] == 7 and e.replay_stats()["nnedi3_passes"] == 0
 
 
 # -- XLA's log and exp ----------------------------------------------------------
