@@ -865,12 +865,13 @@ def _ntsc_pass1_svideo_2phase(ctx, sh):
 # neural edge-directed doubling. The shader embeds its net as ~nns*66
 # inline intBitsToFloat literals and evaluates, per predicted pixel, an
 # 8x4-window [32]-vector through 2*nns neuron dot products. Here the
-# weights are parsed once from the shader text and the pass becomes: 32
-# shifted tap planes of the edge-padded input -> two [32, nns]
-# contractions (one matmul, accumulated in f64 and rounded once to f32)
-# -> the exp/softsign mix -> the interleave along the doubled axis. pass2
-# is pass1 transposed (x-doubling); -rgb runs 3 channels, -luma channel 0
-# only.
+# weights are parsed once from the shader text and the pass becomes one
+# launch of rctpu::nnedi3 (ops/cuda/nnedi3.py) on the card; its plain
+# version, _nnedi3_plain, runs on the CPU: 32 shifted tap planes of the
+# edge-padded input -> two [32, nns] contractions (one matmul, accumulated
+# in f64 and rounded once to f32) -> the exp/softsign mix -> the interleave
+# along the doubled axis. pass2 is pass1 transposed (x-doubling); -rgb runs
+# 3 channels, -luma channel 0 only.
 #
 # Tap geometry (pass1, scale source 1x2, NEAREST, clamp_to_edge): output
 # row 2r is source row r; row 2r+1 is predicted from source rows r-1..r+2
@@ -940,36 +941,16 @@ def _nnedi3_weights(shader_path: str):
 _NNEDI3_WCACHE: dict = {}  # shader path -> the parsed weights (numpy) or None
 
 
-def _nnedi3_kernel(ctx, sh, *, axis: int, comps: int):
-    """axis 0 = pass1 (y-doubling), 1 = pass2 (x-doubling); comps 3 for
-    -rgb, 1 for -luma."""
-    cfg = ctx.program.preset.passes[ctx.i]
-    if cfg.filter_linear or cfg.wrap_mode != "clamp_to_edge" or cfg.mipmap_input:
-        return None
-    tex = ctx.input_binding.tex
+def _nnedi3_plain(tex, wt, bias, axis: int, comps: int):
+    """One nnedi3 pass on one frame as eager passes: ``tex [h, w, C]`` f32,
+    the net's ``wt`` f64 [2 nns, 32] and ``bias`` f32 [2 nns] (b1, then b2;
+    ``ops/cuda/nnedi3.net``) → RGBA [oh, ow, 4] f32. The plain version of
+    ``rctpu::nnedi3`` (ops/cuda/nnedi3.py) and the route of a CPU tensor."""
     h, w = int(tex.shape[0]), int(tex.shape[1])
-    ow, oh = ctx.out_size
-    if axis == 0 and (ow != w or oh != 2 * h):
-        return None
-    if axis == 1 and (ow != 2 * w or oh != h):
-        return None
-
-    key = str(cfg.shader_path)
-    if key not in _NNEDI3_WCACHE:
-        _NNEDI3_WCACHE[key] = _nnedi3_weights(key)
-    packs = _NNEDI3_WCACHE[key]
-    if packs is None:
-        return None
+    oh, ow = (2 * h, w) if axis == 0 else (h, 2 * w)
     dev = tex.device
-
-    def build():
-        w1, w2, b1, b2 = packs
-        # [2 nns, 32] in f64: both contractions in one product.
-        wt = upload(torch.from_numpy(np.concatenate([w1, w2], axis=1).T.astype(np.float64)), dev)
-        return wt, upload(torch.from_numpy(b1), dev)[:, None], upload(torch.from_numpy(b2), dev)[:, None]
-
-    wt, b1, b2 = _kept(("nnedi3", key, str(dev)), build)
-    nns = b1.shape[0]
+    nns = bias.shape[0] // 2
+    b1, b2 = bias[:nns, None], bias[nns:, None]
 
     # 32 tap planes at source resolution: q = s*4 + cw; pass1 window (dy,
     # dx) = (s//2 - 1, (s%2)*4 + cw - 3), pass2 the transpose; edge clamp.
@@ -1012,6 +993,35 @@ def _nnedi3_kernel(ctx, sh, *, axis: int, comps: int):
     out = torch.stack([src, pred], dim=1 if axis == 0 else 2).reshape(oh, ow, comps)
     ones = torch.ones((oh, ow, 4 - comps), dtype=torch.float32, device=dev)
     return torch.cat([out, ones], dim=-1)
+
+
+def _nnedi3_kernel(ctx, sh, *, axis: int, comps: int):
+    """axis 0 = pass1 (y-doubling), 1 = pass2 (x-doubling); comps 3 for
+    -rgb, 1 for -luma. The pass is one ``rctpu::nnedi3`` launch on the card
+    (``ops/cuda/nnedi3.py``), ``_nnedi3_plain`` on the CPU. Declines a net
+    whose neuron count the kernel has no form for."""
+    from retrocapture_tpu_torch.ops.cuda.nnedi3 import NNS, net, nnedi3
+
+    cfg = ctx.program.preset.passes[ctx.i]
+    if cfg.filter_linear or cfg.wrap_mode != "clamp_to_edge" or cfg.mipmap_input:
+        return None
+    tex = ctx.input_binding.tex
+    h, w = int(tex.shape[0]), int(tex.shape[1])
+    ow, oh = ctx.out_size
+    if axis == 0 and (ow != w or oh != 2 * h):
+        return None
+    if axis == 1 and (ow != 2 * w or oh != h):
+        return None
+
+    key = str(cfg.shader_path)
+    if key not in _NNEDI3_WCACHE:
+        _NNEDI3_WCACHE[key] = _nnedi3_weights(key)
+    packs = _NNEDI3_WCACHE[key]
+    if packs is None or packs[2].shape[0] not in NNS:
+        return None
+    dev = tex.device
+    wt, bias = _kept(("nnedi3", key, str(dev)), lambda: tuple(upload(torch.from_numpy(a), dev) for a in net(*packs)))
+    return nnedi3(tex, wt, bias, axis=axis, comps=comps)
 
 
 def _make_nnedi3(axis: int, comps: int):

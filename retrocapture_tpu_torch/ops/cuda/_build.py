@@ -47,11 +47,13 @@ KERNELS = {
     "xbr_front": ("xbr_front_launch", [_P] + [_L] * 4 + [_P] * 8 + [_I] * 8 + [_P]),
     "mattias_epilogue": ("mattias_epilogue_launch",
                          [_P] * 3 + [_L] * 3 + [_P] * 7 + [_I] + [_P] * 2 + [_I, _P, _I, _P, _I, _L, _P]),
+    "nnedi3": ("nnedi3_launch", [_P] + [_L] * 4 + [_P] * 3 + [_I] * 6 + [_P]),
 }
 # nvcc flags of one source beyond NVCC_FLAGS: the mirrors', the fma
-# operator's, the xbr front section's and crt-mattias's epilogue's roundings
-# are all explicit, and no multiply-add may be contracted behind them.
-EXTRA_FLAGS = {name: ["-fmad=false"] for name in ("mirrors", "fma", "xbr_front", "mattias_epilogue")}
+# operator's, the xbr front section's, crt-mattias's epilogue's and nnedi3's
+# roundings are all explicit, and no multiply-add may be contracted behind
+# them.
+EXTRA_FLAGS = {name: ["-fmad=false"] for name in ("mirrors", "fma", "xbr_front", "mattias_epilogue", "nnedi3")}
 
 NVCC_FLAGS = [
     "-gencode",

@@ -18,6 +18,7 @@ from retrocapture_tpu_torch.ops.cuda import blur_groups as bg
 from retrocapture_tpu_torch.ops.cuda import fma as fm
 from retrocapture_tpu_torch.ops.cuda import mattias_epilogue as me
 from retrocapture_tpu_torch.ops.cuda import mirrors as mr
+from retrocapture_tpu_torch.ops.cuda import nnedi3 as nn
 from retrocapture_tpu_torch.ops.cuda import warp_sample as ws
 from retrocapture_tpu_torch.ops.cuda import xbr_epilogue as xe
 from retrocapture_tpu_torch.ops.cuda import xbr_front as xf
@@ -35,6 +36,7 @@ COUNTERS = {
     "xbr_epilogue": ("xbr_epilogue", "LAUNCHES", "xbr_epilogue_kernel"),
     "xbr_front": ("xbr_front", "LAUNCHES", "xbr_front_kernel"),
     "mattias_epilogue": ("mattias_epilogue", "LAUNCHES", "mattias_epilogue_kernel"),
+    "nnedi3": ("nnedi3", "LAUNCHES", "nnedi3_kernel"),
     "mirrors": ("mirrors", "LAUNCHES", "mirror_kernel"),
     "fma": ("fma", "LAUNCHES", "::fma_"),
 }
@@ -51,6 +53,7 @@ RECORDED = {
     "xbr_epilogue": (xe, "_xbr_epilogue_op", lambda S, bx, fpx, fpy, *_: torch.cat(
         [xe.xbr_epilogue_plain(S[i:i + 8], bx, fpx, fpy) for i in range(0, S.shape[0], 8)])),
     "mattias_epilogue": (me, "_mattias_epilogue_op", me.mattias_epilogue_plain),
+    "nnedi3": (nn, "_nnedi3_op", nn.nnedi3_plain),
     "mirrors": (mr, "_mirror_op", mr.mirror_plain),
 }
 

@@ -25,6 +25,7 @@ import torch
 
 import _card
 import _mattias_epilogue_cases as epilogue_cases
+import _nnedi3_cases as nnedi3_cases
 import _xbr_front_cases as front_cases
 import retrocapture_tpu_torch as torch_pkg
 from _mattias_standin import write_standin
@@ -42,10 +43,12 @@ from retrocapture_tpu_torch.ops.cuda import blur_groups as bg
 from retrocapture_tpu_torch.ops.cuda import fma as fm
 from retrocapture_tpu_torch.ops.cuda import mattias_epilogue as me
 from retrocapture_tpu_torch.ops.cuda import mirrors as mr
+from retrocapture_tpu_torch.ops.cuda import nnedi3 as nn
 from retrocapture_tpu_torch.ops.cuda import resample as rs
 from retrocapture_tpu_torch.ops.cuda import warp_sample as ws
 from retrocapture_tpu_torch.ops.cuda import xbr_epilogue as xe
 from retrocapture_tpu_torch.ops.cuda import xbr_front as xf
+from retrocapture_tpu_torch.ops.colorspace import quantize_rgba8
 from retrocapture_tpu_torch.ops.sampling import WRAP_MODES, _axis_matrix, _max_lod
 
 pytestmark = pytest.mark.cuda
@@ -883,6 +886,140 @@ def test_mattias_epilogue_wrapper_raises(cuda_device):
     assert me.LAUNCHES == before
 
 
+# -- nnedi3's pass kernel (csrc/nnedi3.cu) ---------------------------------------
+
+
+def _nnedi3_agrees(got, want, axis, comps, share=1e-4):
+    """The kernel's pass output against the plain version's on the same
+    input: the source rows (pass 1) or columns (pass 2) and channels
+    comps..3 bit for bit; the predicted values bit-equal (NaN where the
+    plain version's is) in at least 1 - ``share`` of them (None: no share)
+    and, after the RGBA8 store, within 1 u8 step everywhere (the kernel's f64
+    sums run in another order than the plain version's reductions and
+    GEMM). Returns the share of predicted values off."""
+
+    def half(x, k):
+        return x[..., k::2, :, :] if axis == 0 else x[..., k::2, :]
+
+    assert got.shape == want.shape and got.dtype == want.dtype == torch.float32
+    assert torch.equal(half(got, 0), half(want, 0)) and torch.equal(got[..., comps:], want[..., comps:])
+    gp, wp = half(got, 1)[..., :comps], half(want, 1)[..., :comps]
+    same = (gp.view(torch.int32) == wp.view(torch.int32)) | (gp.isnan() & wp.isnan())
+    off = 1.0 - float(same.float().mean())
+    codes = [torch.round(quantize_rgba8(x) * 255.0) for x in (gp, wp)]
+    assert (share is None or off <= share) and float((codes[0] - codes[1]).abs().max()) <= 1.0, off
+    return off
+
+
+# (batch, h, w) of a pass's input: odd sizes, one pixel high or wide, and
+# widths that are not a multiple of the block's 64 texels.
+NNEDI3_SHAPES = [(2, 37, 45), (1, 3, 5), (2, 1, 9), (2, 9, 1), (1, 5, 130)]
+
+
+@pytest.mark.parametrize("form", nnedi3_cases.FORMS, ids=nnedi3_cases.form_id)
+def test_nnedi3_kernel_matches_plain(cuda_device, form):
+    """Each of the 12 forms (nns 16, 32, 64 x pass 1, 2 x luma, rgb), one
+    launch a call, against the plain version on the card at
+    NNEDI3_SHAPES, on flat windows (the variance under the threshold:
+    ``mstd2 = 0``) and on textures of all 0 and all 1; against the plain
+    version on the CPU at one shape, within 1 u8 step (the plain version's
+    f32 steps on the CPU part from the card's in a few ulps: 6-40 values in
+    3,330-9,990 at this shape on an H100)."""
+    nns, axis, comps = form
+    rng = np.random.default_rng(nns + 10 * axis + comps)
+    wt, bias = nnedi3_cases.net(nns, nns + axis, cuda_device)
+    texs = [nnedi3_cases.texture(rng, (b, h, w, 4), cuda_device) for b, h, w in NNEDI3_SHAPES]
+    texs += [nnedi3_cases.texture(rng, (2, 37, 45, 4), cuda_device, flat=True),
+             torch.zeros((1, 6, 7, 4), device=cuda_device), torch.ones((1, 6, 7, 4), device=cuda_device)]
+    for tex in texs:
+        before = nn.LAUNCHES
+        got = nn.nnedi3(tex, wt, bias, axis=axis, comps=comps)
+        assert nn.LAUNCHES == before + 1
+        _nnedi3_agrees(got, nn.nnedi3_plain(tex, wt, bias, axis, comps), axis, comps)
+    tex = texs[0]
+    want = nn.nnedi3_plain(tex.cpu(), wt.cpu(), bias.cpu(), axis, comps)
+    _nnedi3_agrees(nn.nnedi3(tex, wt, bias, axis=axis, comps=comps).cpu(), want, axis, comps, share=None)
+
+
+def test_nnedi3_kernel_at_the_cells_shapes(cuda_device):
+    """The benchmark cell's four passes at its batch of 16 (nns64 at 240x320
+    and 480x320, nns32 at 480x640 and 960x640, -rgb), one launch each,
+    against the plain version frame by frame."""
+    rng = np.random.default_rng(40)
+    offs = []
+    for nns, axis, (h, w) in ((64, 0, (240, 320)), (64, 1, (480, 320)), (32, 0, (480, 640)), (32, 1, (960, 640))):
+        wt, bias = nnedi3_cases.net(nns, nns, cuda_device)
+        tex = nnedi3_cases.texture(rng, (16, h, w, 4), cuda_device)
+        before = nn.LAUNCHES
+        got = nn.nnedi3(tex, wt, bias, axis=axis, comps=3)
+        assert nn.LAUNCHES == before + 1
+        offs.append(_nnedi3_agrees(got, nn.nnedi3_plain(tex, wt, bias, axis, 3), axis, 3))
+        del got, tex
+    print("nnedi3 share of predicted values off, by pass:", offs)
+
+
+def test_nnedi3_graph_replay_reads_rewritten_input(cuda_device):
+    """The kernel captured into a CUDA graph over fixed buffers: each replay
+    after the texture (and, the last time, the net) is rewritten in place
+    gives what the plain version gives on the new values, and makes no
+    launch call."""
+    rng = np.random.default_rng(41)
+    wt, bias = nnedi3_cases.net(32, 1, cuda_device)
+    tex = nnedi3_cases.texture(rng, (3, 40, 70, 4), cuda_device)
+    nn.nnedi3(tex, wt, bias, axis=1, comps=3)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = nn.nnedi3(tex, wt, bias, axis=1, comps=3)
+    for k in range(3):
+        tex.copy_(nnedi3_cases.texture(rng, (3, 40, 70, 4), cuda_device, flat=k == 1))
+        if k == 2:
+            for dst, src in zip((wt, bias), nnedi3_cases.net(32, 2, cuda_device)):
+                dst.copy_(src)
+        before = nn.LAUNCHES
+        graph.replay()
+        assert nn.LAUNCHES == before
+        want = nn.nnedi3_plain(tex, wt, bias, 1, 3)
+        torch.cuda.synchronize()
+        _nnedi3_agrees(out, want, 1, 3)
+
+
+def test_nnedi3_batching_rule_launches(cuda_device):
+    """Under torch.func.vmap, frames that share the net are one launch, each
+    frame the bits of its own launch; frames with a net each are one launch
+    each."""
+    rng = np.random.default_rng(42)
+    wt, bias = nnedi3_cases.net(16, 3, cuda_device)
+    tex = nnedi3_cases.texture(rng, (4, 21, 35, 4), cuda_device)
+    before = nn.LAUNCHES
+    got = torch.func.vmap(lambda t: nn.nnedi3(t, wt, bias, axis=0, comps=3))(tex)
+    assert nn.LAUNCHES == before + 1
+    assert torch.equal(got, torch.stack([nn.nnedi3(t, wt, bias, axis=0, comps=3) for t in tex]))
+    nets = [nnedi3_cases.net(16, 20 + i, cuda_device) for i in range(4)]
+    wts, biases = torch.stack([n[0] for n in nets]), torch.stack([n[1] for n in nets])
+    before = nn.LAUNCHES
+    got = torch.func.vmap(lambda t, w, b: nn.nnedi3(t, w, b, axis=1, comps=1))(tex, wts, biases)
+    assert nn.LAUNCHES == before + 4
+    assert torch.equal(got, torch.stack([nn.nnedi3(t, *n, axis=1, comps=1) for t, n in zip(tex, nets)]))
+
+
+def test_nnedi3_wrapper_raises_on_the_card(cuda_device):
+    rng = np.random.default_rng(43)
+    wt, bias = nnedi3_cases.net(16, 4, cuda_device)
+    tex = nnedi3_cases.texture(rng, (2, 12, 16, 4), cuda_device)
+    before = nn.LAUNCHES
+    with pytest.raises(ValueError):
+        nn.nnedi3(tex, wt.cpu(), bias.cpu(), axis=0, comps=3)  # the net on another device
+    with pytest.raises(ValueError):
+        nn.nnedi3(tex, wt.float(), bias, axis=0, comps=3)
+    with pytest.raises(ValueError):
+        nn.nnedi3(tex, wt[:16], bias[:16], axis=0, comps=3)  # 8 neurons: no kernel form
+    with pytest.raises(TypeError):
+        nn.nnedi3(tex.double(), wt, bias, axis=0, comps=3)
+    assert nn.LAUNCHES == before
+
+
 @pytest.mark.parametrize("seed", range(4))
 def test_resample_kernel_random_geometries(cuda_device, seed):
     """Random sizes, ratios (up and down), channel counts and batches, 25 a
@@ -1365,14 +1502,18 @@ def test_new_kernels_bit_equal_under_graph_replay(cuda_device):
             assert _same_bits(got, w), seed
 
 
-@pytest.mark.parametrize("case", ["mattias const", "mattias traced", "nnedi3"])
+@pytest.mark.parametrize("case", ["mattias const", "mattias traced", "nnedi3", "ntsc"])
 def test_mirror_call_sites_bit_equal_to_the_plain_path(cuda_device, tmp_path, monkeypatch, case):
     """crt-mattias (const and traced, CURVATURE changed between applies) and
-    nnedi3 on the card through the mirrors' kernel and through their plain
-    versions on the card (the operator's CUDA implementation swapped for
-    them), replayed by graph and walked: bit-equal."""
+    ntsc-320px on the card through the mirrors' kernel and through their
+    plain versions on the card (the operator's CUDA implementation swapped
+    for them), replayed by graph and walked: bit-equal. nnedi3's exp runs
+    inside its own kernel: its chain launches no mirror on either route and
+    gives the same bits."""
     if case == "nnedi3":
         path, viewport, hw = write_nnedi3_chain(str(tmp_path), 16, "rgb", height=48), (192, 108), (24, 32)
+    elif case == "ntsc":
+        path, viewport, hw = write_ntsc_chain(str(tmp_path), 256), (128, 48), (48, 64)
     else:
         path, viewport, hw = write_standin(str(tmp_path)), (256, 144), (48, 64)
     frames = [torch.from_numpy(np.random.default_rng(k).integers(0, 256, (3,) + hw + (3,), dtype=np.uint8)).cuda()
@@ -1390,12 +1531,12 @@ def test_mirror_call_sites_bit_equal_to_the_plain_path(cuda_device, tmp_path, mo
             before = mr.LAUNCHES
             outs = []
             for k, f in enumerate(frames):
-                if k and case != "nnedi3":
+                if k and case.startswith("mattias"):
                     assert e.set_parameter("CURVATURE", 0.8)
                 outs.append(e.apply(f, output="f32"))
             torch.cuda.synchronize()
             assert e.shader_active is True and e.last_error is None
-            assert (mr.LAUNCHES > before) == (route == "kernel")
+            assert (mr.LAUNCHES > before) == (route == "kernel" and case != "nnedi3")
             runs[route, replay] = outs
     for key, outs in runs.items():
         for got, want in zip(outs, runs["plain", "0"]):
@@ -1774,15 +1915,19 @@ MAIN_PATHS = {
                                              entries=(NTSC_ENTRIES, 4), looks=_looks_lit),
     "ntsc-320px composite + linear": MainPath(_ntsc("composite", "linear"), 8, {"resample_u8": 1},
                                               entries=(NTSC_ENTRIES, 4), looks=_looks_lit),
-    "nnedi3 nns64 -rgb": MainPath(_nnedi3(64, "rgb"), 32, {"resample_u8": 1}, entries=(NNEDI3_NAMES, 2),
-                                  some=("mirrors",), blit_from=(2 * SRC_HW[0], 2 * SRC_HW[1]), looks=_looks_lit),
+    # One nnedi3 launch a pass for the batch; its exp is inside the kernel.
+    "nnedi3 nns64 -rgb": MainPath(_nnedi3(64, "rgb"), 32, {"nnedi3": 2, "mirrors": 0, "resample_u8": 1},
+                                  entries=(NNEDI3_NAMES, 2), blit_from=(2 * SRC_HW[0], 2 * SRC_HW[1]),
+                                  looks=_looks_lit),
     # The benchmark's nnedi3-nns64-2x-nns32-4x-rgb: four passes, the last at
-    # 960 x 1280; a small batch (the entry's transients are ~2.2 GB a frame).
+    # 960 x 1280; a small batch (the plain version that checks each recorded
+    # launch keeps ~2.2 GB of transients a frame at the last pass).
     "nnedi3 nns64-2x nns32-4x -rgb": MainPath(lambda tmp: write_nnedi3_4x_chain(str(tmp), height=4 * SRC_HW[0]), 4,
-                                              {"resample_u8": 1}, entries=(NNEDI3_NAMES, 4), some=("mirrors",),
-                                              blit_from=(4 * SRC_HW[0], 4 * SRC_HW[1]), looks=_looks_lit),
-    "nnedi3 nns16 -luma": MainPath(_nnedi3(16, "luma"), 8, {"resample_u8": 1}, entries=(NNEDI3_NAMES, 2),
-                                   looks=_looks_lit),
+                                              {"nnedi3": 4, "mirrors": 0, "resample_u8": 1},
+                                              entries=(NNEDI3_NAMES, 4), blit_from=(4 * SRC_HW[0], 4 * SRC_HW[1]),
+                                              looks=_looks_lit),
+    "nnedi3 nns16 -luma": MainPath(_nnedi3(16, "luma"), 8, {"nnedi3": 2, "mirrors": 0, "resample_u8": 1},
+                                   entries=(NNEDI3_NAMES, 2), looks=_looks_lit),
     "mip-glow": MainPath(lambda tmp: write_mip_presets(tmp)[0], 4, {"resample_u8": 1},
                          blit_from=(int(SRC_HW[0] * 0.3), int(SRC_HW[1] * 0.3)), looks=_looks_blurred),
     # One warped sample a pyramid level for the batch; its level of detail
@@ -1993,7 +2138,7 @@ def test_main_path_at_full_size(cuda_device, tmp_path, monkeypatch, name):
             assert rec["entries"] == {"engaged": case.entries[1], "declined": 0}
         if case.blit_from:
             assert [tuple(t.shape) for t in rec["blits"]] == [(case.batch,) + case.blit_from + (3,)]
-        for k in ("warp_sample", "blur_groups", "xbr_front", "xbr_epilogue", "mattias_epilogue"):
+        for k in ("warp_sample", "blur_groups", "xbr_front", "xbr_epilogue", "mattias_epilogue", "nnedi3"):
             assert len(rec[k]) == walked[k] and all(a[0].shape[0] == case.batch for a in rec[k]), k
         assert bool(torch.isfinite(walk[2]).all())
         assert case.looks(_Run(e, walk[1], frames[1], rec))
@@ -2044,11 +2189,17 @@ def test_main_path_at_full_size(cuda_device, tmp_path, monkeypatch, name):
     assert not fmas, f"a plain fma ran on the card: {sorted(set(fmas))}"
     assert not fallbacks, f"vmap took its per-example fallback for {sorted(set(fallbacks))}"
 
-    # Each recorded launch against its plain version on its own arguments.
+    # Each recorded launch against its plain version on its own arguments
+    # (nnedi3's within _nnedi3_agrees: its f64 sums run in another order).
     for k, (module, op, plain) in _card.RECORDED.items():
         while rec[k]:
             args = rec[k].pop()
-            assert _same_bits(getattr(module, op)(*args), plain(*args)), f"{k} {tuple(args[0].shape)}"
+            got, want = getattr(module, op)(*args), plain(*args)
+            if k == "nnedi3":
+                _nnedi3_agrees(got, want, *args[3:5])
+            else:
+                assert _same_bits(got, want), f"{k} {tuple(args[0].shape)}"
+            del got, want
     for _, args in rec.pop("fma").values():
         operands = [s if t is None else t for t, s in zip(args[:3], args[3:6])]
         assert _same_bits(fm._fma_call(*args), fm.fma_plain(*operands, args[6])), fm._plan(args[:3])

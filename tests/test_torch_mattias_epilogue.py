@@ -286,7 +286,7 @@ def test_constants_match_the_kernel_source(scanspeed):
 def test_the_build_hash_covers_the_headers(tmp_path, monkeypatch):
     """A kernel's library name carries the hash of its source and of the
     headers it includes: an edit of ``numerics.cuh`` renames the mirrors',
-    fma's and the epilogue's libraries and no other."""
+    fma's, the epilogue's and nnedi3's libraries and no other."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
@@ -294,5 +294,5 @@ def test_the_build_hash_covers_the_headers(tmp_path, monkeypatch):
     (csrc / "numerics.cuh").write_text((csrc / "numerics.cuh").read_text() + "\n// edited\n")
     after = {n: _build._library_path(n) for n in _build.KERNELS}
     changed = sorted(n for n in _build.KERNELS if before[n] != after[n])
-    assert changed == ["fma", "mattias_epilogue", "mirrors"]
+    assert changed == ["fma", "mattias_epilogue", "mirrors", "nnedi3"]
     assert all("-fmad=false" in _build.EXTRA_FLAGS[n] for n in changed)

@@ -12,10 +12,12 @@ first at the benchmark's shapes through a walked engine
 ``launches`` are its kernel's launch calls in both second applies, summed
 over the paths, its ``graph_runs`` the kernel's runs inside the replayed
 apply's CUDA graph (the benchmark's ``harness/trace.py`` profiler). The
-walks record the xbr, crt-mattias epilogue, mirror and multiply-add inputs
-the rows time; crt-mattias's old output pow and multiply-add (rows M and
-F), which its epilogue kernel computes now, are timed on random inputs
-of their shapes.
+walks record the xbr, crt-mattias epilogue and multiply-add inputs the
+rows time; crt-mattias's old output pow and multiply-add (rows M and F)
+and nnedi3's old exp (M'), which the epilogue and nnedi3 kernels compute
+now, are timed on random inputs of their shapes, and the nnedi3 kernel
+(row N) on random textures and nets at the benchmark cell's four passes,
+beside its plain version.
 
 A time is the mean of CUDA events around a window of many calls queued
 behind a spin kernel, in turns with the library call (kernel, library,
@@ -64,6 +66,7 @@ KERNELS = {
     "xbr_front": ("xbr_front.cu", "none, XLA's fusion of the front section of retrocapture_tpu/graph/kernels.py:340"),
     "mattias_epilogue": ("mattias_epilogue.cu",
                          "none, XLA's fusion of crt-mattias's epilogue, retrocapture_tpu/graph/kernels.py:189-226"),
+    "nnedi3": ("nnedi3.cu", "none, XLA's fusion of nnedi3's pass, retrocapture_tpu/graph/kernels.py:_nnedi3_kernel"),
     "mirrors": ("mirrors.cu", "none, XLA's inline sin/log/exp in the reference's fusions"),
     "fma": ("fma.cu", "none, XLA's contracted multiply-adds in the reference's fusions"),
 }
@@ -195,6 +198,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     import _card
+    import _nnedi3_cases as nnedi3_cases
     from _mattias_standin import write_standin as write_mattias
     from _nnedi3_standin import write_chain as write_nnedi3
     from _ntsc_standin import write_chain as write_ntsc
@@ -205,6 +209,7 @@ def main() -> int:
     from retrocapture_tpu_torch.ops.cuda import fma as fm
     from retrocapture_tpu_torch.ops.cuda import mattias_epilogue as me
     from retrocapture_tpu_torch.ops.cuda import mirrors as mr
+    from retrocapture_tpu_torch.ops.cuda import nnedi3 as nn
     from retrocapture_tpu_torch.ops.cuda import resample as rs
     from retrocapture_tpu_torch.ops.cuda import warp_sample as ws
     from retrocapture_tpu_torch.ops.cuda import xbr_epilogue as xe
@@ -232,8 +237,7 @@ def main() -> int:
             "xbr-lv2": (write_xbr(own("xbr-lv2")), "rgb", 64, {}, (lambda: _card.launched(xe, "_xbr_epilogue_op"),
                                                                   lambda: _card.launched(xf, "_xbr_front_op"))),
             "ntsc-320px": (write_ntsc(own("ntsc-320px"), 4 * w), "rgb", 128, {}, ()),
-            "nnedi3 nns64 -rgb": (write_nnedi3(own("nnedi3"), 64, "rgb", height=2 * h), "rgb", 32, {},
-                                  (lambda: _card.launched(mr, "_mirror_op"),)),
+            "nnedi3 nns64 -rgb": (write_nnedi3(own("nnedi3"), 64, "rgb", height=2 * h), "rgb", 32, {}, ()),
         }.items():
             path_launches, path_graph_runs, recorded[name] = run_path(preset, fmt, batch, env,
                                                                       [r() for r in recorders])
@@ -245,20 +249,24 @@ def main() -> int:
 
     rows = []
 
-    def row(rid, kernel, shape, fn, plain, bound_work, library=None, library_fn=None):
-        err = max_err(fn(), plain())
-        ms = in_turns(fn, library_fn) if library_fn else in_turns(fn)
+    def row(rid, kernel, shape, fn, plain, bound_work, library=None, library_fn=None, time_plain=False, err=None):
+        """``err``: the largest difference from the plain version where
+        ``fn()`` is not one output; ``time_plain``: time the plain version
+        beside the kernel."""
+        err = max_err(fn(), plain()) if err is None else err
+        ms = in_turns(*[f for f in (fn, library_fn, plain if time_plain else None) if f])
         b_ms, b_by = peaks.bound(*bound_work)
         source, replaces = KERNELS[kernel]
         rows.append({"row": rid, "name": kernel, "route": "cuda", "source": f"retrocapture_tpu_torch/csrc/{source}",
                      "replaces": replaces, "shape": shape, "launches": launches[kernel],
                      "graph_runs": graph_runs[kernel], "in_graph": graph_runs[kernel] > 0, "max_abs_err": err,
                      "ms": ms[0], "bound_ms": b_ms, "bound_by": b_by, "share_pct": 100.0 * b_ms / ms[0],
-                     "library": library, "library_ms": ms[1] if library_fn else None})
+                     "library": library, "library_ms": ms[1] if library_fn else None,
+                     "plain_ms": ms[-1] if time_plain else None})
         r = rows[-1]
         print(f"{rid:>4} {kernel:<15} {shape:<58} {r['ms']:9.4f} ms  bound {b_ms:.4f} ({b_by}) "
-              f"{r['share_pct']:5.1f}%  err {err:g}" + (f"  {library} {r['library_ms']:.4f} ms" if library_fn else ""),
-              flush=True)
+              f"{r['share_pct']:5.1f}%  err {err:g}" + (f"  {library} {r['library_ms']:.4f} ms" if library_fn else "")
+              + (f"  plain {r['plain_ms']:.4f} ms" if time_plain else ""), flush=True)
 
     # 1, 1', 3: the blit with its u8 pack, through blit_u8's cached tables.
     def interp(t):
@@ -329,16 +337,36 @@ def main() -> int:
         work("mattias_epilogue", 32, SRC_HW, (vh, vw)))
     del a
 
+    # N: nnedi3's pass kernel at the benchmark cell's four passes, batch 16
+    # (nns64 doubling 240x320 to 480x320 and then to 480x640, nns32 to
+    # 960x640 and 960x1280, -rgb), random RGBA8 levels and nets; beside it
+    # the plain version (the eager section the kernel replaced), frame by
+    # frame. The bound is the benchmark's work formula (work/nnedi3.py).
+    stages = [(64, (240, 320), (480, 320)), (64, (480, 320), (480, 640)), (32, (480, 640), (960, 640)),
+              (32, (960, 640), (960, 1280))]
+    nets = {nns: nnedi3_cases.net(nns, nns, "cuda") for nns in (64, 32)}
+    passes = [(nnedi3_cases.texture(np.random.default_rng(k), (16,) + hw + (4,), "cuda"), nns, k % 2)
+              for k, (nns, hw, _) in enumerate(stages)]
+    err = 0.0
+    for tex, nns, axis in passes:
+        err = max(err, max_err(nn.nnedi3(tex, *nets[nns], axis=axis, comps=3),
+                               nn.nnedi3_plain(tex, *nets[nns], axis, 3)))
+    row("N", "nnedi3", "4 passes [16,240,320,4] -> [16,960,1280,4]",
+        lambda: [nn.nnedi3(tex, *nets[nns], axis=axis, comps=3) for tex, nns, axis in passes],
+        lambda: [nn.nnedi3_plain(tex, *nets[nns], axis, 3) for tex, nns, axis in passes],
+        load_module(BENCH / "work" / "nnedi3.py").work(16, stages), time_plain=True, err=err)
+    del passes, nets
+
     # M, M': the mirrors at crt-mattias's old output gamma (pow 0.45 of RGB
-    # at [32, 1080, 1920], random values) and at nnedi3's exp.
+    # at [32, 1080, 1920]) and at nnedi3's old exp (the nns64 chain's second
+    # pass at batch 32, before the kernel N computed it), random values.
     c045 = float(_F(_F(_F(0.45) * _F(1.0 / np.log(2.0))) * _F(np.log(2.0))))
-    exps = recorded.pop("nnedi3 nns64 -rgb")[0]
     for rid, (xm, op, c), ops in (("M", (torch.rand((32, vh, vw, 3), device="cuda"), "pow", c045), 52),
-                                  ("M'", max((a for a in exps if a[1] == "exp"), key=lambda a: a[0].numel()), 21)):
+                                  ("M'", (torch.rand((32, 64, 460800), device="cuda") * 12.0 - 8.0, "exp", 0.0),
+                                   21)):
         row(rid, "mirrors", f"{op}{f' {c:.6g}' if op == 'pow' else ''} {list(xm.shape)}",
             lambda: mr._mirror_op(xm, op, c), lambda: mr.mirror_plain(xm, op, c), mirror_work(xm, ops))
         del xm
-    del exps
 
     # F - F''': rctpu::fma at crt-mattias's old saturation step fma32(col,
     # col, -col) over [32, 1080, 1920, 3] (random values) and at
