@@ -7,7 +7,8 @@
   compared number of each run.
 * The control's: the plain reference computed in the precision below the
   one the configuration states (bfloat16 for float32), put in the
-  program's place: its answers for the frames a run of that seed samples,
+  program's place (``compare.rendered``, so a stateful reference replays
+  from frame 0 here too): its answers for the frames a run of that seed samples,
   held to the float32 reference by the same numbers (over the frames
   that a run spanning ``--frames`` frames samples, or as many as the
   first program run of this call delivered).
@@ -40,13 +41,8 @@ LOWER = {"float64": torch.float32, "float32": torch.bfloat16}  # the precision t
 def control_numbers(cell, seed: int, frames, device) -> dict:
     """The control's compared numbers over ``frames`` of seed ``seed``."""
     src = FrameSource(cell.traffic, cell.src_hw, seed)
-    ref = cell.reference()
-    vw, vh = cell.viewport
     low = LOWER[cell.config["precision"]]
-    kept = {}
-    for g in frames:
-        x = torch.from_numpy(src.frame(g)).to(device)
-        kept[g] = ref.render(x, g, cell.config["parameters"], (vh, vw), low).cpu()
+    kept = {g: want.cpu() for g, want in compare.rendered(cell, src, frames, low, device)}
     return compare.compare(cell, src, kept, device)
 
 

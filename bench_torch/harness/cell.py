@@ -110,6 +110,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *, device: str 
     else:
         window_peak = process_peak = 0
     counters = e.replay_stats()
+    if compare.is_stateful(cell.reference()) and counters.get("frames") != win.next_frame:
+        # A stateful reference replays frames 0 .. g; the engine has to have
+        # run exactly those, in one unbroken sequence.
+        raise RuntimeError(f"the engine ran {counters.get('frames')} frames, the loops handed it "
+                           f"{win.next_frame}: no unbroken sequence to replay")
     del e
     gc.collect()
     if card:

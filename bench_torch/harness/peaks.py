@@ -1,10 +1,10 @@
 """The card's peaks and the roofline bound.
 
-Copied from chip_smoke.py (``PEAK_BYTES_S``, ``PEAK_F32_S``, ``bound``,
-``nbytes``), so that a change to the program's scripts cannot move the
-yardstick. The peaks are NVIDIA's data sheet for one H100 SXM at its
-700 W limit: 3.35 TB/s of HBM, 67 TFLOP/s of f32 outside the tensor
-cores. A run prints the card's power limit beside its numbers.
+Kept under the benchmark's own directory, so that a change to the
+program or to its tools cannot move the yardstick. The peaks are NVIDIA's
+data sheet for one H100 SXM at its 700 W limit: 3.35 TB/s of HBM, 67
+TFLOP/s of f32 outside the tensor cores. A run prints the card's power
+limit beside its numbers.
 """
 
 from __future__ import annotations

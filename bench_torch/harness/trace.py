@@ -6,11 +6,10 @@ Its device records (kernels, copies, fills) give the device's busy time
 name, and the idle gaps; its host records (the benchmark's own spans and
 the program's operators) name what the host was doing in each gap.
 
-Copied from chip_smoke.py (``device_records``, ``PROFILE_TRIES``,
-``_SPIN``, ``_SPIN_CYCLES``): a window on the card was seen to come back
-with no device record at all, and to lose its last record when the
-profiler stops. A short spin kernel stands last and is left out, and a
-window with no device record is run again, ``PROFILE_TRIES`` in all.
+A window on the card was seen to come back with no device record at
+all, and to lose its last record when the profiler stops. A short spin
+kernel stands last and is left out, and a window with no device record is
+run again, ``PROFILE_TRIES`` in all.
 """
 
 from __future__ import annotations

@@ -1,6 +1,8 @@
 """queue.copy_out_ms_per_batch: the host's time in the program's
-``rctpu.queue.copy_out`` spans (the readback's copy out of its pinned
-buffer into a fresh array) over the traced window, a batch."""
+``rctpu.queue.copy_out`` spans (the readback handing a batch out of its
+pinned buffer: lent as a view of the buffer, ``rctpu.queue.handout``, or
+copied into an array of its own where no buffer would be left for the next
+download, ``rctpu.queue.copy_held``) over the traced window, a batch."""
 
 SPAN = "rctpu.queue.copy_out"
 

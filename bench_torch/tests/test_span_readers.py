@@ -10,7 +10,7 @@ from harness.cell import Readings
 from harness.spec import resolve
 from harness.trace import DeviceTrace
 
-OFFLINE, LIVE = "crt-mattias-1080p.offline", "xbr-lv2-1080p.live"
+OFFLINE, LIVE = "crt-mattias-1080p.offline", "crt-mattias-1080p.live"
 QUEUE = ("queue.copy_out_ms_per_batch", "queue.wait_ms_per_batch", "device.idle_in_queue_pct.offline")
 ENGINE = ("engine.launch_ms.live", "engine.readback_ms.live")
 

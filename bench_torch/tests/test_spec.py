@@ -118,7 +118,7 @@ def test_a_new_config_mix_metric_and_kernel_are_new_files_only(tmp_path):
                                            "moves": "latency_p95_ms", "workloads": ["xbr-lv2-720p.live120"]}]
     # The open loop's end-to-end metrics cover the new cell too.
     b["end_to_end"] = [dict(m, workloads=m["workloads"] + ["xbr-lv2-720p.live120"])
-                       if "xbr-lv2-1080p.live" in m.get("workloads", []) else m for m in SPEC["end_to_end"]]
+                       if "crt-mattias-1080p.live" in m.get("workloads", []) else m for m in SPEC["end_to_end"]]
     cell = spec.resolve("xbr-lv2-720p.live120", bench=b, root=copy)
     assert cell.viewport == (1280, 720) and cell.traffic["rate_hz"] == 120
     assert {m["name"] for m in cell.per_layer} >= {"kernel.toy.roofline_pct"}

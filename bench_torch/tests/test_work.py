@@ -1,5 +1,5 @@
 """The work formulas give the bounds the port's kernel table states at the
-same shapes (PERF.md, chip_smoke.py's counts)."""
+same shapes (PERF.md §6)."""
 
 import pytest
 

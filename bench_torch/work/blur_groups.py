@@ -1,6 +1,6 @@
 """The work of crt-mattias's blur, ``rctpu::blur_groups``, at a stage's shapes.
 
-Counted as chip_smoke.py counts it (phase 25's blur_groups row), from the
+Counted as the port's kernel table counts it (PERF.md §6, row 4), from the
 stage's shapes and not from the kernel's arguments: the texture ``[B, h,
 w, 3]`` f32 and the coordinates ``u, v [OH, OW]`` f32 read once, one f32
 plane a channel written once; 9 blur() groups x 25 NEAREST taps a pixel,

@@ -1,7 +1,7 @@
 """The work of the viewport blit with its u8 pack, ``resample_u8``, at a
 stage's shapes.
 
-Counted as chip_smoke.py counts it (``blit_bound``): the f32 RGB input
+Counted as the port's kernel table counts it (PERF.md §6, row 1): the f32 RGB input
 ``[B, H, W, 3]`` read once, the u8 output ``[B, OH, OW, 3]`` written once,
 and two (index, weight) taps an output row and column; 4 taps x (mul,
 add), the scale and the rounding an output value.

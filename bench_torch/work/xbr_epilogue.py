@@ -1,6 +1,6 @@
 """The work of xbr-lv2's epilogue, ``rctpu::xbr_epilogue``, at a stage's shapes.
 
-Counted as chip_smoke.py counts it (phase 25's xbr_epilogue row), from the
+Counted as the port's kernel table counts it (PERF.md §6, row 6), from the
 stage's shapes: the 19 planes ``S [B, 19, OH, w]`` f32 (the E, H, F, B, D
 colours and 4 flag codes at output rows and source columns), the maps
 ``bx`` (int32) and ``fpx`` ``[OW]``, ``fpy [OH]`` and the 65-word ramp

@@ -1,8 +1,8 @@
 """The work of xbr-lv2's front section, ``rctpu::xbr_front``, at a stage's shapes.
 
-Counted from the stage's shapes as chip_smoke.py counts it (phase 15's
-xbr_front row): the source's 3 colour channels ``[B, H, W]`` f32 read once,
-the index maps (the clamped columns ``[W + 4]`` and the 5 row maps ``[OH]``,
+Counted from the stage's shapes as the port's kernel table counts it
+(PERF.md §6, row X): the source's 3 colour channels ``[B, H, W]`` f32 read
+once, the index maps (the clamped columns ``[W + 4]`` and the 5 row maps ``[OH]``,
 int64) read once, and ``S [B, 19, OH, W]`` f32 written once. Operations are
 counted per S pixel: 93 a corner for the edge rules and the code (11
 equality tests of 3, 6 inequalities, the two weighted sums of 30, the five
